@@ -10,15 +10,20 @@ Phases (each exits non-zero on failure; none is caught):
    kernel from ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` per source,
    all started together);
 2. hold each kernel against its plain PyTorch version on the card at the
-   shapes glm4-9b's serving path gives it — the int8 GEMM bit-exact, paged
-   attention allclose — and time kernel, plain version, a library yardstick
-   (timed here, never called by the port) and the card's bound;
+   shapes glm4-9b's serving path gives it — the int8 GEMM bit-exact (at
+   decode's M = 8 and verify's M = 40), paged decode and verify attention
+   allclose, verify at Q = 1 bit-equal to decode — and time kernel, plain
+   version, a library yardstick (timed here, never called by the port) and
+   the card's bound;
 3. serve full-width glm4-9b (random weights from a seeded generator, depth
    as published) through ``LLMEngine(backend="paged")`` with bf16 pools and
-   with int8 pools, with every launch count set to 0 just before and read
-   just after each run; check every request finishes with its token count,
-   the logits are finite, and the kernels' results agree with the CPU's
-   plain versions on a small input.
+   with int8 pools: plain decode, then speculative decoding
+   (``spec_tokens=4``) with the prefix cache on a shared-prefix workload
+   (and the same workload with ``spec_tokens=0`` beside it), with every
+   launch count set to 0 just before and read just after each run; check
+   every request finishes with its token count, the logits are finite, the
+   kernels' results agree with the CPU's plain versions on a small input,
+   and spec on gives spec off's greedy tokens on a small input.
 
 The last lines of stdout are a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -84,7 +89,7 @@ def timed(torch, fn, reps: int, flush=None) -> float:
 # ---------------------------------------------------------------------------
 
 
-def check_int8_gemm(torch, cfg, slots):
+def check_int8_gemm(torch, cfg, slots, verify_rows):
     from repro_torch.core import quant
     from repro_torch.kernels.int8_gemm import ops
     from repro_torch.kernels.int8_gemm.ref import int8_gemm_ref
@@ -105,7 +110,8 @@ def check_int8_gemm(torch, cfg, slots):
                              dtype=torch.int32)
         layer[name] = (w, bias, mult.to(torch.int32), shift.to(torch.int32))
     xs = {m: torch.randint(-127, 128, (m, max(d, f)), generator=g,
-                           device=dev, dtype=torch.int8) for m in (1, slots)}
+                           device=dev, dtype=torch.int8)
+          for m in (1, slots, verify_rows)}
     n_checked = 0
     for m, x in xs.items():
         for name, (w, bias, mult, shift) in layer.items():
@@ -131,6 +137,15 @@ def check_int8_gemm(torch, cfg, slots):
         for a in args:
             ops.int8_gemm_cuda(*a)
 
+    # and at the verify pass's M = slots · (spec_tokens + 1)
+    xv = xs[verify_rows]
+    args_v = [(xv[:, :w.shape[0]].contiguous(), w, b, mu, sh)
+              for w, b, mu, sh in layer.values()]
+
+    def kernel_verify():
+        for a in args_v:
+            ops.int8_gemm_cuda(*a)
+
     def plain():
         for a in args:
             int8_gemm_ref(*a)
@@ -149,10 +164,15 @@ def check_int8_gemm(torch, cfg, slots):
             acc = torch._int_mm(xp, w) + b
             quant.requantize(acc, mu, sh)
 
-    nbytes = sum(slots * w.shape[0] + w.numel() + 12 * w.shape[1]
-                 + slots * w.shape[1] for w, *_ in layer.values())
-    ops_n = sum(2 * slots * w.shape[0] * w.shape[1] for w, *_ in layer.values())
-    b_ms, b_by = bound(nbytes, ops_n, "int8")
+    def gemm_bound(m):
+        nbytes = sum(m * w.shape[0] + w.numel() + 12 * w.shape[1]
+                     + m * w.shape[1] for w, *_ in layer.values())
+        ops_n = sum(2 * m * w.shape[0] * w.shape[1]
+                    for w, *_ in layer.values())
+        return bound(nbytes, ops_n, "int8")
+
+    b_ms, b_by = gemm_bound(slots)
+    bv_ms, _ = gemm_bound(verify_rows)
     return dict(
         name="int8_gemm", route="cuda",
         source="src/repro_torch/kernels/int8_gemm/csrc/int8_gemm.cu",
@@ -161,17 +181,18 @@ def check_int8_gemm(torch, cfg, slots):
         plain_ms=timed(torch, plain, 5), bound_ms=b_ms, bound_by=b_by,
         library_ms=timed(torch, library, 20),
         shape=f"7 projections of one layer, M={slots} (library: M={pad})",
-        cases_checked=n_checked)
+        cases_checked=n_checked, verify_rows=verify_rows,
+        verify_ms=timed(torch, kernel_verify, 20), verify_bound_ms=bv_ms)
 
 
 def attention_case(torch, cfg, slots, lens, *, pool_dtype, int8, blk,
-                   window=None, start=False, seed=1):
+                   window=None, start=False, seed=1, qlen=1):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     m = max(-(-(max(lens) + 2 * blk) // blk), 1)
     n = slots * m + 1
-    q = torch.randn((slots, hq, 1, d), generator=g, device=dev) * 2.0
+    q = torch.randn((slots, hq, qlen, d), generator=g, device=dev) * 2.0
     if int8:
         kp = torch.randint(-127, 128, (n, hkv, blk, d), generator=g,
                            device=dev, dtype=torch.int8)
@@ -276,23 +297,132 @@ def check_attention(torch, cfg, slots, blk, lens, flush, *, int8):
               f"blk={blk} lens={list(lens)}")
 
 
+def check_verify(torch, cfg, slots, blk, lens, qlen, flush, *, int8):
+    """Kernels B4/B5 (small-q verify) at glm4-9b's shapes: allclose with the
+    plain version; at Q = 1, and in row 0 at any Q, bit-equal to B1/B2."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.paged_attention.ref import (
+        gather_kv, paged_attention_verify_int8_dequant_ref,
+        paged_attention_verify_ref,
+    )
+
+    op = ops.paged_attention_verify_int8 if int8 else ops.paged_attention_verify
+    dec = ops.paged_attention_int8 if int8 else ops.paged_attention
+    ref = (paged_attention_verify_int8_dequant_ref if int8
+           else paged_attention_verify_ref)
+    lens = [max(x, 1) for x in lens]          # verify rows attend lens ≥ 1
+    cases = ([(torch.int8, dict()), (torch.int8, dict(window=100, start=True))]
+             if int8 else [(torch.bfloat16, dict()),
+                           (torch.float32, dict(window=100, start=True))])
+    main_err = None
+    for pool, var in cases:
+        args, kw = attention_case(torch, cfg, slots, lens, pool_dtype=pool,
+                                  int8=int8, blk=blk, qlen=qlen, **var)
+        if int8:
+            args = (args[0].bfloat16(),) + args[1:]
+        out = op(*args, **kw)
+        want = ref(*args, **kw)
+        torch.cuda.synchronize()
+        tol = 1.6e-2 if out.dtype == torch.bfloat16 else 1e-4
+        torch.testing.assert_close(out.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        err = (out.float() - want.float()).abs().max().item()
+        if not var:
+            main_err = err
+        q1 = args[0][:, :, :1].contiguous()
+        d1 = dec(q1, *args[1:], **kw)
+        if not torch.equal(op(q1, *args[1:], **kw), d1):
+            raise AssertionError(f"{op.__name__} at Q=1 is not bit-equal to "
+                                 f"{dec.__name__} ({pool}, {var})")
+        if not torch.equal(out[:, :, :1], d1):
+            raise AssertionError(f"{op.__name__} row 0 is not bit-equal to "
+                                 f"{dec.__name__} ({pool}, {var})")
+    # timing at the serving shape: bf16 q, bf16 or int8 pools
+    args, kw = attention_case(torch, cfg, slots, lens,
+                              pool_dtype=torch.int8 if int8 else torch.bfloat16,
+                              int8=int8, blk=blk, qlen=qlen)
+    if int8:
+        args = (args[0].bfloat16(),) + args[1:]
+    q, kp, vp, table, lens_t = args
+    k = gather_kv(kp, table)
+    v = gather_kv(vp, table)
+    if int8:  # the yardstick attends the dequantized K/V in bf16
+        es = lambda s: s[table.long()].repeat_interleave(blk, 1)[:, None, :, None]  # noqa: E731
+        k = (k.float() * es(kw["k_scale"])).bfloat16()
+        v = (v.float() * es(kw["v_scale"])).bfloat16()
+    eff = lens_t[:, None] + torch.arange(qlen, device=q.device)[None, :]
+    mask = (torch.arange(k.shape[2], device=q.device)[None, None, :]
+            < eff[:, :, None])[:, None]            # [B, 1, Q, S]
+    kernel_ms = timed(torch, lambda: op(*args, **kw), 50, flush)
+    plain_ms = timed(torch, lambda: ref(*args, **kw), 20, flush)
+    sdpa = dict(attn_mask=mask, enable_gqa=True)
+    try:
+        F.scaled_dot_product_attention(q, k, v, **sdpa)
+    except TypeError:  # a PyTorch without enable_gqa: expand the KV heads
+        group = cfg.n_heads // cfg.n_kv_heads
+        k, v = k.repeat_interleave(group, 1), v.repeat_interleave(group, 1)
+        sdpa = dict(attn_mask=mask)
+    library_ms = timed(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, **sdpa), 50, flush)
+    # bytes: q in and out once, each row's K/V up to its last query's
+    # length once, table entries, lens, per-block scales
+    keys = [x + qlen - 1 for x in lens]
+    esz = 1 if int8 else 2
+    nblocks = sum(-(-x // blk) for x in keys)
+    nbytes = (2 * q.numel() * q.element_size()
+              + 2 * sum(keys) * cfg.n_kv_heads * cfg.hd * esz
+              + 4 * (nblocks + slots) + (8 * nblocks if int8 else 0))
+    ops_n = sum(4 * (x + j) * cfg.n_heads * cfg.hd
+                for x in lens for j in range(qlen))
+    b_ms, b_by = bound(nbytes, ops_n, "int8" if int8 else "bf16")
+    kern = ops.KERNEL_VERIFY_INT8 if int8 else ops.KERNEL_VERIFY
+    return dict(
+        name=kern.name, route="cuda",
+        source="src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+        replaces=kern.replaces.split()[0], max_abs_err=main_err,
+        ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=library_ms,
+        shape=f"B={slots} Hq={cfg.n_heads} Hkv={cfg.n_kv_heads} D={cfg.hd} "
+              f"Q={qlen} blk={blk} lens={lens}")
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the port's main path at full width
 # ---------------------------------------------------------------------------
 
 
-def serve(torch, arch, params, n_requests, slots, max_new, seed):
-    from repro_torch.kernels.build import all_kernels
-    from repro_torch.serve import EngineConfig, LLMEngine
-
+def random_prompts(vocab, n_requests, seed):
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    prompts = [rng.integers(0, arch.cfg.vocab, int(rng.integers(64, 513))
-                            ).astype(np.int32) for _ in range(n_requests)]
+    return [rng.integers(0, vocab, int(rng.integers(64, 513))).astype(np.int32)
+            for _ in range(n_requests)]
+
+
+def shared_prefix_prompts(vocab, n_requests, seed):
+    """One shared 256-token prefix plus a per-request 64–256-token suffix
+    with period-3 repetition (the n-gram drafter finds trailing matches)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, vocab, 256)
+    out = []
+    for _ in range(n_requests):
+        period = rng.integers(0, vocab, 3)
+        suffix = np.tile(period, 86)[:int(rng.integers(64, 257))]
+        out.append(np.concatenate([shared, suffix]).astype(np.int32))
+    return out
+
+
+def serve(torch, arch, params, prompts, slots, max_new, **engine_kw):
+    from repro_torch.kernels.build import all_kernels
+    from repro_torch.serve import EngineConfig, LLMEngine
+
     eng = LLMEngine(arch, params, EngineConfig(
         slots=slots, max_len=512 + max_new, admit_window=2,
-        scheduler="bounded", block_len=16))
+        scheduler="bounded", block_len=16, **engine_kw))
     for k in all_kernels():
         k.launches = 0
     torch.cuda.synchronize()
@@ -307,13 +437,22 @@ def serve(torch, arch, params, n_requests, slots, max_new, seed):
         if len(r.output) != max_new or r.finish_reason != "length":
             raise AssertionError(
                 f"request {r.rid}: {len(r.output)} tokens, {r.finish_reason}")
-    # the logits of one more decode step over the engine's pools are finite
-    logits, _ = arch.paged_decode_step(
-        params, eng.cache, eng.backend.last_tok, eng.backend._tables(),
-        qparams=eng.backend.qparams)
-    if tuple(logits.shape) != (slots, arch.cfg.vocab) or not bool(
-            torch.isfinite(logits).all()):
-        raise AssertionError(f"decode logits {tuple(logits.shape)} not finite")
+    # the logits of one more decode (or verify) step over the engine's
+    # pools are finite
+    k = engine_kw.get("spec_tokens", 0)
+    if k:
+        logits, _ = arch.paged_verify_step(
+            params, eng.cache, torch.zeros((slots, k + 1), dtype=torch.int32,
+                                           device="cuda"),
+            eng.backend._tables(), qparams=eng.backend.qparams)
+        want = (slots, k + 1, arch.cfg.vocab)
+    else:
+        logits, _ = arch.paged_decode_step(
+            params, eng.cache, eng.backend.last_tok, eng.backend._tables(),
+            qparams=eng.backend.qparams)
+        want = (slots, arch.cfg.vocab)
+    if tuple(logits.shape) != want or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"logits {tuple(logits.shape)} not finite")
     m = eng.metrics()
     return dict(
         tokens_per_s=sum(len(r.output) for r in reqs) / wall,
@@ -321,6 +460,10 @@ def serve(torch, arch, params, n_requests, slots, max_new, seed):
         iterations=m["iterations"], wall_s=wall,
         preemptions=sum(r.preemptions for r in reqs),
         prompt_tokens=int(sum(len(p) for p in prompts)),
+        spec_accept_rate=m["spec_accept_rate"],
+        spec_drafted=m["spec_drafted"], spec_accepted=m["spec_accepted"],
+        prefix_cache_hit_rate=m.get("prefix_cache_hit_rate", 0.0),
+        prefill_skip_rate=m.get("prefill_skip_rate", 0.0),
         launches=counts)
 
 
@@ -356,6 +499,40 @@ def small_input_agreement(torch, quant):
     return same, total
 
 
+def small_input_spec_agreement(torch, quant):
+    """Smoke-size glm4-9b in float32 on the card with the prefix cache:
+    spec_tokens=4 gives spec_tokens=0's greedy tokens."""
+    from repro_torch import bridge, configs
+    from repro_torch.models import registry
+    from repro_torch.serve import EngineConfig, LLMEngine
+
+    import numpy as np
+
+    cfg = dataclasses.replace(configs.smoke_config("glm4-9b"),
+                              dtype="float32", serve_quant=quant)
+    arch = registry.build(cfg)
+    params = bridge.params_from_numpy(
+        bridge.numpy_params(arch.schema(), seed=SEED), "cuda")
+    rng = np.random.default_rng(3)
+    shared = rng.integers(0, cfg.vocab, 19)
+    prompts = [np.concatenate([shared, np.tile(rng.integers(0, cfg.vocab, 3),
+                                               8)[:int(rng.integers(4, 20))]])
+               for _ in range(6)]
+    outs = {}
+    for k in (0, 4):
+        eng = LLMEngine(arch, params, EngineConfig(
+            slots=4, max_len=64, admit_window=2, block_len=8, spec_tokens=k,
+            prefix_cache=True), device="cuda")
+        hs = [eng.add_request(p, max_new_tokens=12) for p in prompts]
+        eng.run_until_drained()
+        outs[k] = [eng.request(h).output for h in hs]
+    same = sum(a == b for x, y in zip(outs[4], outs[0]) for a, b in zip(x, y))
+    total = sum(len(x) for x in outs[0])
+    if same / total < 0.9:
+        raise AssertionError(f"spec on vs off greedy tokens: {same}/{total}")
+    return same, total
+
+
 def main() -> None:
     try:
         import torch
@@ -386,27 +563,40 @@ def main() -> None:
 
     # -- phase 2: kernels vs plain versions ---------------------------------
     cfg = configs.get_config("glm4-9b")
-    slots, blk, max_new = 8, 16, 32
+    slots, blk, max_new, spec_k = 8, 16, 32, 4
     lens = [0, 1, 17, 64, 130, 255, 400, 544]
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     flush = scratch.zero_
-    entries = [check_int8_gemm(torch, cfg, slots),
+    entries = [check_int8_gemm(torch, cfg, slots, slots * (spec_k + 1)),
                check_attention(torch, cfg, slots, blk, lens, flush,
                                int8=False),
                check_attention(torch, cfg, slots, blk, lens, flush,
-                               int8=True)]
+                               int8=True),
+               check_verify(torch, cfg, slots, blk, lens, spec_k + 1, flush,
+                            int8=False),
+               check_verify(torch, cfg, slots, blk, lens, spec_k + 1, flush,
+                            int8=True)]
     del scratch
     for e in entries:
         print(f"kernel {e['name']}: kernel_ms={e['ms']:.4f} "
               f"plain_ms={e['plain_ms']:.4f} bound_ms={e['bound_ms']:.4f} "
               f"({e['bound_by']}) library_ms={e['library_ms']:.4f} "
               f"max_abs_err={e['max_abs_err']} [{e['shape']}]", flush=True)
+    gemm = entries[0]
+    print(f"kernel int8_gemm at the verify pass's M={gemm['verify_rows']}: "
+          f"kernel_ms={gemm['verify_ms']:.4f} "
+          f"bound_ms={gemm['verify_bound_ms']:.4f}", flush=True)
+    print("verify kernels at Q=1 and in row 0: bit-equal to decode", flush=True)
 
     # -- phase 3: full-width glm4-9b through LLMEngine ----------------------
     same_f, total_f = small_input_agreement(torch, quant=False)
     same_q, total_q = small_input_agreement(torch, quant=True)
     print(f"small input, card vs CPU greedy tokens: float {same_f}/{total_f}, "
           f"int8 {same_q}/{total_q}", flush=True)
+    same_f, total_f = small_input_spec_agreement(torch, quant=False)
+    same_q, total_q = small_input_spec_agreement(torch, quant=True)
+    print(f"small input on the card, spec on vs off greedy tokens: float "
+          f"{same_f}/{total_f}, int8 {same_q}/{total_q}", flush=True)
     arch_f = registry.build(dataclasses.replace(cfg, serve_quant=False))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     t0 = time.perf_counter()
@@ -416,26 +606,55 @@ def main() -> None:
     print(f"glm4-9b params: {schema.param_count(arch_f.schema()) / 1e9:.2f} B "
           f"({time.perf_counter() - t0:.1f} s to draw on the card)", flush=True)
     n_requests = 16
+    archs = {"float": arch_f, "int8": registry.build(cfg)}
+    plain = random_prompts(cfg.vocab, n_requests, seed=2)
+    shared = shared_prefix_prompts(cfg.vocab, n_requests, seed=4)
     runs = {}
-    for label, arch in (("float", arch_f), ("int8", registry.build(cfg))):
-        r = serve(torch, arch, params, n_requests, slots, max_new, seed=2)
+    for label, pool, prompts, kw in (
+            ("float", "float", plain, {}),
+            ("int8", "int8", plain, {}),
+            ("float prefix", "float", shared, dict(prefix_cache=True)),
+            ("float spec+prefix", "float", shared,
+             dict(prefix_cache=True, spec_tokens=spec_k)),
+            ("int8 prefix", "int8", shared, dict(prefix_cache=True)),
+            ("int8 spec+prefix", "int8", shared,
+             dict(prefix_cache=True, spec_tokens=spec_k))):
+        r = serve(torch, archs[pool], params, prompts, slots, max_new, **kw)
         runs[label] = r
-        print(f"serve {label}: {n_requests} requests x {max_new} tokens, "
-              f"tokens/s={r['tokens_per_s']:.2f} decode_ms/iter(p50)="
+        print(f"serve {label}: {n_requests} requests x {max_new} tokens "
+              f"({r['prompt_tokens']} prompt tokens), "
+              f"tokens/s={r['tokens_per_s']:.2f} iter_ms(p50)="
               f"{r['decode_ms_per_iter_p50']:.2f} iterations={r['iterations']:.0f} "
-              f"preemptions={r['preemptions']} kernels={json.dumps(r['launches'])}",
-              flush=True)
-    if runs["float"]["launches"]["paged_attention"] == 0:
-        raise AssertionError("float run never launched paged_attention")
-    for k in ("paged_attention_int8", "int8_gemm"):
-        if runs["int8"]["launches"][k] == 0:
-            raise AssertionError(f"int8 run never launched {k}")
+              f"preemptions={r['preemptions']} "
+              f"spec_accept_rate={r['spec_accept_rate']:.4f} "
+              f"(drafted {r['spec_drafted']:.0f}, accepted {r['spec_accepted']:.0f}) "
+              f"prefix_cache_hit_rate={r['prefix_cache_hit_rate']:.4f} "
+              f"prefill_skip_rate={r['prefill_skip_rate']:.4f} "
+              f"kernels={json.dumps(r['launches'])}", flush=True)
+    need = {"float": ["paged_attention"],
+            "int8": ["paged_attention_int8", "int8_gemm"],
+            "float spec+prefix": ["paged_attention_verify"],
+            "int8 spec+prefix": ["paged_attention_verify_int8", "int8_gemm"]}
+    for label, names in need.items():
+        for k in names:
+            if runs[label]["launches"][k] == 0:
+                raise AssertionError(f"{label} run never launched {k}")
     if runs["float"]["preemptions"] + runs["int8"]["preemptions"] == 0:
         raise AssertionError("no preemption happened")
+    for label in ("float prefix", "int8 prefix", "float spec+prefix",
+                  "int8 spec+prefix"):
+        if runs[label]["prefix_cache_hit_rate"] <= 0:
+            raise AssertionError(f"{label} run had no prefix-cache hit")
     main_counts = {"paged_attention": runs["float"]["launches"]["paged_attention"],
                    "paged_attention_int8":
                        runs["int8"]["launches"]["paged_attention_int8"],
-                   "int8_gemm": runs["int8"]["launches"]["int8_gemm"]}
+                   "int8_gemm": runs["int8"]["launches"]["int8_gemm"],
+                   "paged_attention_verify":
+                       runs["float spec+prefix"]["launches"][
+                           "paged_attention_verify"],
+                   "paged_attention_verify_int8":
+                       runs["int8 spec+prefix"]["launches"][
+                           "paged_attention_verify_int8"]}
     for e in entries:
         e["launches"] = main_counts[e["name"]]
     if {e["name"] for e in entries} != {k.name for k in all_kernels()}:

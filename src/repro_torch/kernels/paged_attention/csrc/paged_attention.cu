@@ -1,30 +1,50 @@
-// Paged one-token decode attention over a block pool, for sm_90a.
+// Paged attention over a block pool, for sm_90a: one-token decode and the
+// small-q speculative verify step.
 //
 // Replaces: src/repro/kernels/paged_attention/kernel.py
 //   * paged_attention_pallas (body _paged_kernel) — float pools (bf16/f32);
 //   * paged_attention_int8_pallas (body _paged_int8_kernel) — int8 pools
 //     with per-block scales: q requantized by Q_SCALE (round half even),
 //     exact int32 q8·k8 score dots scaled by q_scale·k_scale[block], the V
-//     scale folded into each block's partial product.
+//     scale folded into each block's partial product;
+//   * paged_attention_verify_pallas (body _paged_verify_kernel) and
+//     paged_attention_verify_int8_pallas (_paged_verify_int8_kernel) — the
+//     same two over Q = spec_tokens + 1 query rows per batch row, folded
+//     into the GQA group axis (row g·Q + j is query j of head g) with row
+//     j attending lens + j keys.
 // Contract: allclose with repro_torch/kernels/paged_attention/ref.py
-//   (paged_attention_ref, paged_attention_int8_dequant_ref): the online
-//   softmax only reorders f32 additions. Length mask, optional sliding
-//   window, per-row start offset; rows with lens == 0 write zeros.
+//   (paged_attention_ref, paged_attention_int8_dequant_ref and their
+//   verify versions): the online softmax only reorders f32 additions.
+//   Length mask, optional sliding window, per-row start offset; rows with
+//   lens == 0 write zeros.
 //
 // What bounds it: decode reads each row's live K/V blocks once — bytes,
 //   not operations (a GQA group of G query heads does 2·G flops per K/V
-//   element). At serving sizes the whole call moves a few MB, so a naive
-//   kernel is latency-bound long before it reaches the card's memory rate.
-// What the design does about it: one block per (row, kv head) holds the
-//   whole GQA group (16 query heads for glm4-9b), so every pool block is
-//   read once per kv head, not once per query head. The block walks its
-//   table entries in order — the loop replaces the TPU's sequential grid
-//   axis — starting at the first entry inside the window and stopping at
-//   the first entry past lens; K/V of one entry are staged in shared memory
-//   (K rows padded against bank conflicts) and the running max, sum and
-//   accumulator stay in shared memory and registers. Splitting long rows
-//   over several blocks (flash-decoding) and cp.async/TMA staging are
-//   later work.
+//   element, verify 2·G·Q). At serving sizes the whole call moves a few
+//   MB, so a naive kernel is latency-bound long before it reaches the
+//   card's memory rate.
+// What the design does about it: one block per (row, kv head, row chunk)
+//   holds up to `rows` folded query rows of the GQA group (all 16 query
+//   heads of glm4-9b's decode in one chunk), so every pool block is read
+//   once per kv head and chunk, not once per query head. The block walks
+//   its table entries in order — the loop replaces the TPU's sequential
+//   grid axis — starting at the first entry inside the window and stopping
+//   at the first entry past the longest row's length (lens + Q - 1); K/V
+//   of one entry are staged in shared memory (K rows padded against bank
+//   conflicts) and the running max, sum and accumulator stay in shared
+//   memory and registers. Splitting long rows over several blocks
+//   (flash-decoding) and cp.async/TMA staging are later work.
+// Verify: the accumulators live in registers, at most 16 per thread of
+//   256 (rows·D ≤ 4096), and glm4-9b's verify at k = 4 has G·Q = 80 rows
+//   of 128 = 10240. So the G·Q folded rows are split over a third grid
+//   axis in balanced chunks (80 → 3 × ≤ 27 rows); each chunk re-reads the
+//   entry's K/V, mostly from L2. This keeps one kernel body for decode
+//   and verify: the per-row arithmetic (dot order, one warp per row's
+//   softmax with lane = key, the accumulate order) does not depend on Q,
+//   the chunk or the row's position in it, and a row's masked entries
+//   (score −inf → p = 0, alpha = 1, or alpha = 0 while nothing is valid
+//   yet) leave its state bit for bit as it was. So verify at Q = 1 is
+//   decode bit for bit, and row 0 at any Q equals decode at the same lens.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -35,10 +55,10 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
-constexpr int MAX_PER_THREAD = 16;   // accumulators per thread: G·D ≤ 4096
+constexpr int MAX_PER_THREAD = 16;   // accumulators per thread: rows·D ≤ 4096
 
 struct Params {
-  const void* q;        // [B, Hq, 1, D] f32 | bf16
+  const void* q;        // [B, Hq, Q, D] f32 | bf16
   const void* k;        // [N, Hkv, blk, D] f32 | bf16 | int8
   const void* v;
   const int* table;     // [B, M]
@@ -46,8 +66,10 @@ struct Params {
   const int* start;     // [B] or null (zeros)
   const float* kscale;  // [N] (int8 pools)
   const float* vscale;  // [N]
-  void* out;            // [B, Hq, 1, D], q's dtype
+  void* out;            // [B, Hq, Q, D], q's dtype
   int B, Hq, Hkv, D, N, blk, M, window;  // window < 0: none
+  int Q;                // query rows per batch row (1: decode)
+  int rows;             // folded rows per block (blockIdx.z = chunk)
   float rsd;            // float32(D^-0.5)
   float q_scale;        // float32(Q_SCALE)
   float q_inv;          // float32(1) / float32(Q_SCALE)
@@ -77,7 +99,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 __host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
 
-// Shared-memory plan (bytes): q | K (padded rows) | V | scores | m, l, alpha
+// Shared-memory plan (bytes) for G folded query rows:
+// q | K (padded rows) | V | scores | m, l, alpha
 struct Layout {
   int kstride, q_off, k_off, v_off, s_off, st_off, bytes;
 };
@@ -97,8 +120,12 @@ __host__ __device__ inline Layout make_layout(int G, int D, int blk, bool int8) 
 template <typename QT, typename KT, bool INT8>
 __global__ void __launch_bounds__(THREADS) paged_attention_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int G = p.Hq / p.Hkv, D = p.D, blk = p.blk, GD = G * D;
-  const Layout L = make_layout(G, D, blk, INT8);
+  const int D = p.D, blk = p.blk, Q = p.Q;
+  const int R = (p.Hq / p.Hkv) * Q;            // folded rows of the group
+  const int r0 = blockIdx.z * p.rows;          // this chunk's first row
+  const int G = min(p.rows, R - r0);           // rows of this chunk
+  const int GD = G * D;
+  const Layout L = make_layout(p.rows, D, blk, INT8);
   float* q_s = reinterpret_cast<float*>(smem + L.q_off);
   int8_t* q8_s = reinterpret_cast<int8_t*>(smem + L.q_off);
   float* k_s = reinterpret_cast<float*>(smem + L.k_off);
@@ -114,8 +141,10 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(Params p) {
   const int len = p.lens[b];
   const int st = p.start ? p.start[b] : 0;
 
-  // this block's query rows are heads h·G .. h·G+G-1 of row b
-  const QT* qp = static_cast<const QT*>(p.q) + ((size_t)b * p.Hq + (size_t)h * G) * D;
+  // folded row r of kv head h is query r % Q of head h·(Hq/Hkv) + r / Q;
+  // in [B, Hq, Q, D] the group's R rows are contiguous
+  const size_t row_base = ((size_t)b * p.Hq * Q + (size_t)h * R + r0) * D;
+  const QT* qp = static_cast<const QT*>(p.q) + row_base;
   for (int e = tid; e < GD; e += THREADS) {
     const float qs = to_f(qp[e]) * p.rsd;
     if constexpr (INT8) {
@@ -132,8 +161,10 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(Params p) {
 #pragma unroll
   for (int r = 0; r < MAX_PER_THREAD; ++r) acc[r] = 0.f;
 
-  // table entries that hold a position in [max(start, lens - window), lens)
-  const int n_ent = len > st ? min(p.M, (len - st + blk - 1) / blk) : 0;
+  // table entries that hold a position in [max(start, lens - window),
+  // lens + Q - 1): row 0's window starts first, the last row ends last
+  const int len_max = len + Q - 1;
+  const int n_ent = len_max > st ? min(p.M, (len_max - st + blk - 1) / blk) : 0;
   int first = 0;
   if (p.window >= 0 && len - p.window > st) first = (len - p.window - st) / blk;
 
@@ -159,7 +190,8 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(Params p) {
     const float kscale = INT8 ? p.q_scale * p.kscale[bid] : 0.f;
     for (int e = tid; e < G * blk; e += THREADS) {
       const int g = e / blk, j = e - g * blk, pos = row0 + j;
-      const bool valid = pos < len && (p.window < 0 || pos >= len - p.window);
+      const int len_g = len + (r0 + g) % Q;  // this row's effective length
+      const bool valid = pos < len_g && (p.window < 0 || pos >= len_g - p.window);
       float sc = -INFINITY;
       if (valid) {
         if constexpr (INT8) {
@@ -217,7 +249,7 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(Params p) {
   }
   __syncthreads();
 
-  QT* op = static_cast<QT*>(p.out) + ((size_t)b * p.Hq + (size_t)h * G) * D;
+  QT* op = static_cast<QT*>(p.out) + row_base;
 #pragma unroll
   for (int r = 0; r < MAX_PER_THREAD; ++r) {
     const int e = tid + r * THREADS;
@@ -231,16 +263,18 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(Params p) {
 template <typename QT, typename KT, bool INT8>
 int launch_typed(const Params& p, cudaStream_t stream) {
   const int G = p.Hq / p.Hkv;
-  if (G * p.Hkv != p.Hq || G * p.D > MAX_PER_THREAD * THREADS)
+  if (G * p.Hkv != p.Hq || p.Q < 1 || p.rows < 1 ||
+      p.rows * p.D > MAX_PER_THREAD * THREADS)
     return (int)cudaErrorInvalidValue;
-  const Layout L = make_layout(G, p.D, p.blk, INT8);
+  const int chunks = (G * p.Q + p.rows - 1) / p.rows;
+  const Layout L = make_layout(p.rows, p.D, p.blk, INT8);
   auto kernel = paged_attention_kernel<QT, KT, INT8>;
   if (L.bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid(p.Hkv, p.B);
+  dim3 grid(p.Hkv, p.B, chunks);
   kernel<<<grid, THREADS, L.bytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
@@ -249,7 +283,7 @@ Params make_params(const void* q, const void* k, const void* v,
                    const void* table, const void* lens, const void* start,
                    const void* kscale, const void* vscale, void* out, int B,
                    int Hq, int Hkv, int D, int N, int blk, int M, int window,
-                   float rsd, float q_scale, float q_inv) {
+                   int Q, int rows, float rsd, float q_scale, float q_inv) {
   Params p;
   p.q = q; p.k = k; p.v = v;
   p.table = (const int*)table; p.lens = (const int*)lens;
@@ -257,8 +291,25 @@ Params make_params(const void* q, const void* k, const void* v,
   p.kscale = (const float*)kscale; p.vscale = (const float*)vscale;
   p.out = out;
   p.B = B; p.Hq = Hq; p.Hkv = Hkv; p.D = D; p.N = N; p.blk = blk; p.M = M;
-  p.window = window; p.rsd = rsd; p.q_scale = q_scale; p.q_inv = q_inv;
+  p.window = window; p.Q = Q; p.rows = rows;
+  p.rsd = rsd; p.q_scale = q_scale; p.q_inv = q_inv;
   return p;
+}
+
+int launch_float(const Params& p, int qtype, int kvtype, cudaStream_t s) {
+  if (qtype == 0 && kvtype == 0) return launch_typed<float, float, false>(p, s);
+  if (qtype == 0 && kvtype == 1) return launch_typed<float, __nv_bfloat16, false>(p, s);
+  if (qtype == 1 && kvtype == 0) return launch_typed<__nv_bfloat16, float, false>(p, s);
+  if (qtype == 1 && kvtype == 1)
+    return launch_typed<__nv_bfloat16, __nv_bfloat16, false>(p, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int launch_int8(const Params& p, int qtype, int kvtype, cudaStream_t s) {
+  if (kvtype != 2 || !p.kscale || !p.vscale) return (int)cudaErrorInvalidValue;
+  if (qtype == 0) return launch_typed<float, int8_t, true>(p, s);
+  if (qtype == 1) return launch_typed<__nv_bfloat16, int8_t, true>(p, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -269,40 +320,36 @@ const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// qtype: 0 f32, 1 bf16; kvtype: 0 f32, 1 bf16 (float pools)
-int paged_attention_launch(const void* q, const void* k, const void* v,
-                           const void* table, const void* lens,
-                           const void* start, const void* kscale,
-                           const void* vscale, void* out, int qtype,
-                           int kvtype, int B, int Hq, int Hkv, int D, int N,
-                           int blk, int M, int window, float rsd,
-                           float q_scale, float q_inv, void* stream) {
-  Params p = make_params(q, k, v, table, lens, start, kscale, vscale, out, B,
-                         Hq, Hkv, D, N, blk, M, window, rsd, q_scale, q_inv);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (qtype == 0 && kvtype == 0) return launch_typed<float, float, false>(p, s);
-  if (qtype == 0 && kvtype == 1) return launch_typed<float, __nv_bfloat16, false>(p, s);
-  if (qtype == 1 && kvtype == 0) return launch_typed<__nv_bfloat16, float, false>(p, s);
-  if (qtype == 1 && kvtype == 1)
-    return launch_typed<__nv_bfloat16, __nv_bfloat16, false>(p, s);
-  return (int)cudaErrorInvalidValue;
+// Every entry point takes the same arguments. qtype: 0 f32, 1 bf16;
+// kvtype: 0 f32, 1 bf16 (float pools), 2 int8 (with per-block kscale/vscale).
+// Q: query rows per batch row; rows: folded rows per block. The decode entry
+// points take Q = 1 (B1, B2), the verify ones Q = k + 1 (B4, B5).
+#define REPRO_PAGED_ARGS                                                     \
+  const void *q, const void *k, const void *v, const void *table,            \
+      const void *lens, const void *start, const void *kscale,               \
+      const void *vscale, void *out, int qtype, int kvtype, int B, int Hq,   \
+      int Hkv, int D, int N, int blk, int M, int window, int Q, int rows,    \
+      float rsd, float q_scale, float q_inv, void *stream
+#define REPRO_PAGED_PARAMS                                                   \
+  make_params(q, k, v, table, lens, start, kscale, vscale, out, B, Hq, Hkv,  \
+              D, N, blk, M, window, Q, rows, rsd, q_scale, q_inv)
+
+int paged_attention_launch(REPRO_PAGED_ARGS) {
+  if (Q != 1) return (int)cudaErrorInvalidValue;
+  return launch_float(REPRO_PAGED_PARAMS, qtype, kvtype, (cudaStream_t)stream);
 }
 
-// int8 pools (kvtype 2) with per-block kscale/vscale
-int paged_attention_int8_launch(const void* q, const void* k, const void* v,
-                                const void* table, const void* lens,
-                                const void* start, const void* kscale,
-                                const void* vscale, void* out, int qtype,
-                                int kvtype, int B, int Hq, int Hkv, int D,
-                                int N, int blk, int M, int window, float rsd,
-                                float q_scale, float q_inv, void* stream) {
-  Params p = make_params(q, k, v, table, lens, start, kscale, vscale, out, B,
-                         Hq, Hkv, D, N, blk, M, window, rsd, q_scale, q_inv);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (kvtype != 2 || !kscale || !vscale) return (int)cudaErrorInvalidValue;
-  if (qtype == 0) return launch_typed<float, int8_t, true>(p, s);
-  if (qtype == 1) return launch_typed<__nv_bfloat16, int8_t, true>(p, s);
-  return (int)cudaErrorInvalidValue;
+int paged_attention_int8_launch(REPRO_PAGED_ARGS) {
+  if (Q != 1) return (int)cudaErrorInvalidValue;
+  return launch_int8(REPRO_PAGED_PARAMS, qtype, kvtype, (cudaStream_t)stream);
+}
+
+int paged_attention_verify_launch(REPRO_PAGED_ARGS) {
+  return launch_float(REPRO_PAGED_PARAMS, qtype, kvtype, (cudaStream_t)stream);
+}
+
+int paged_attention_verify_int8_launch(REPRO_PAGED_ARGS) {
+  return launch_int8(REPRO_PAGED_PARAMS, qtype, kvtype, (cudaStream_t)stream);
 }
 
 }  // extern "C"

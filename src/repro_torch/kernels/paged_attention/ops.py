@@ -1,17 +1,21 @@
-"""Public ops: paged decode attention over float and int8 block pools.
+"""Public ops: paged decode and speculative-verify attention over float
+and int8 block pools.
 
 Port of ``repro.kernels.paged_attention.ops`` without the reference's
 ``xla``/``interpret``/``pallas`` backend ladder: the device decides. A CPU
 tensor takes the plain version (``ref.py``); a CUDA tensor launches the
 Hopper kernel in ``csrc/paged_attention.cu``, which replaces the TPU
-kernels ``paged_attention_pallas`` (float pools) and
-``paged_attention_int8_pallas`` (int8 pools) of
+kernels ``paged_attention_pallas`` (float pools),
+``paged_attention_int8_pallas`` (int8 pools) and their small-q verify
+counterparts ``paged_attention_verify_pallas`` /
+``paged_attention_verify_int8_pallas`` of
 ``repro/kernels/paged_attention/kernel.py``. There is no fallback from one
 to the other.
 
-Layouts are the reference's: q ``[B, Hq, 1, D]``, pools ``[N, Hkv,
-block_len, D]``, block table ``[B, M]`` int32, lens and start ``[B]``
-int32, per-block scales ``[N]`` f32.
+Layouts are the reference's: q ``[B, Hq, Q, D]`` (``Q = 1`` for decode,
+``spec_tokens + 1`` for verify), pools ``[N, Hkv, block_len, D]``, block
+table ``[B, M]`` int32, lens and start ``[B]`` int32, per-block scales
+``[N]`` f32.
 """
 
 from __future__ import annotations
@@ -26,13 +30,14 @@ from repro_torch.core.quant import recip32
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_int8_dequant_ref, paged_attention_ref,
+    paged_attention_verify_int8_dequant_ref, paged_attention_verify_ref,
 )
 from repro_torch.models.attention import KV_SCALE, Q_SCALE
 
 _C = ctypes
 _LIB = build.CudaLibrary(
     build.KERNELS_DIR / "paged_attention" / "csrc" / "paged_attention.cu")
-_ARGTYPES = ([_C.c_void_p] * 9 + [_C.c_int] * 10 + [_C.c_float] * 3
+_ARGTYPES = ([_C.c_void_p] * 9 + [_C.c_int] * 12 + [_C.c_float] * 3
              + [_C.c_void_p])
 KERNEL = build.register(build.CudaKernel(
     "paged_attention", _LIB, "paged_attention_launch", _ARGTYPES,
@@ -42,17 +47,44 @@ KERNEL_INT8 = build.register(build.CudaKernel(
     "paged_attention_int8", _LIB, "paged_attention_int8_launch", _ARGTYPES,
     replaces="src/repro/kernels/paged_attention/kernel.py:237 "
              "paged_attention_int8_pallas"))
+KERNEL_VERIFY = build.register(build.CudaKernel(
+    "paged_attention_verify", _LIB, "paged_attention_verify_launch",
+    _ARGTYPES,
+    replaces="src/repro/kernels/paged_attention/kernel.py:387 "
+             "paged_attention_verify_pallas"))
+KERNEL_VERIFY_INT8 = build.register(build.CudaKernel(
+    "paged_attention_verify_int8", _LIB, "paged_attention_verify_int8_launch",
+    _ARGTYPES,
+    replaces="src/repro/kernels/paged_attention/kernel.py:504 "
+             "paged_attention_verify_int8_pallas"))
 
 _QTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KVTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# one block per (row, kv head) holds the GQA group's accumulators in
-# registers: at most 16 per thread of its 256 threads
+# one block per (row, kv head, row chunk) holds its folded query rows'
+# accumulators in registers: at most 16 per thread of its 256 threads
 MAX_GROUP_ELEMS = 16 * 256
 
 
-def _check_shapes(q, k_pool, v_pool, block_table, lens, start):
-    if q.dim() != 4 or q.shape[2] != 1:
-        raise ValueError(f"q must be [B, Hq, 1, D], got {tuple(q.shape)}")
+def rows_per_block(group: int, qlen: int, d: int) -> int:
+    """Folded query rows per block: the G·Q rows of a (row, kv head) in
+    balanced chunks of at most ``MAX_GROUP_ELEMS // d`` rows (one chunk,
+    all G rows, for glm4-9b's decode; 80 → 3 × ≤ 27 for its verify at
+    k = 4)."""
+    cap = MAX_GROUP_ELEMS // d
+    if cap < 1:
+        raise ValueError(f"head_dim {d} exceeds {MAX_GROUP_ELEMS}")
+    total = group * qlen
+    chunks = -(-total // cap)
+    return -(-total // chunks)
+
+
+def _check_shapes(q, k_pool, v_pool, block_table, lens, start, qlen=None):
+    """``qlen`` None: verify (any Q ≥ 1); else q must have exactly qlen
+    query rows (decode: 1)."""
+    if q.dim() != 4 or (qlen is not None and q.shape[2] != qlen) \
+            or q.shape[2] < 1:
+        want = "Q" if qlen is None else str(qlen)
+        raise ValueError(f"q must be [B, Hq, {want}, D], got {tuple(q.shape)}")
     if q.shape[1] % k_pool.shape[1]:
         raise ValueError(
             f"query heads {q.shape[1]} not a multiple of kv heads "
@@ -71,11 +103,9 @@ def _check_shapes(q, k_pool, v_pool, block_table, lens, start):
 
 def _launch(kernel, q, k_pool, v_pool, block_table, lens, start, k_scale,
             v_scale, window):
-    b, hq, _, d = q.shape
+    b, hq, qlen, d = q.shape
     n, hkv, blk, _ = k_pool.shape
-    if (hq // hkv) * d > MAX_GROUP_ELEMS:
-        raise ValueError(f"GQA group × head_dim = {(hq // hkv) * d} exceeds "
-                         f"{MAX_GROUP_ELEMS}")
+    rows = rows_per_block(hq // hkv, qlen, d)
     if q.dtype not in _QTYPES:
         raise ValueError(f"q dtype {q.dtype} not supported")
     build.check_cuda("q", q, q.dtype)
@@ -98,10 +128,27 @@ def _launch(kernel, q, k_pool, v_pool, block_table, lens, start, k_scale,
         build.ptr(block_table), build.ptr(lens), build.ptr(start),
         build.ptr(k_scale), build.ptr(v_scale), build.ptr(out),
         _QTYPES[q.dtype], _KVTYPES[k_pool.dtype], b, hq, hkv, d, n, blk,
-        block_table.shape[1], -1 if window is None else int(window),
-        float(np.float32(d ** -0.5)), float(np.float32(Q_SCALE)),
+        block_table.shape[1], -1 if window is None else int(window), qlen,
+        rows, float(np.float32(d ** -0.5)), float(np.float32(Q_SCALE)),
         recip32(Q_SCALE), build.stream_ptr(q))
     return out
+
+
+def _int8_scales(name, q, k_pool, v_pool, k_scale, v_scale):
+    """Int8 pool check; missing per-block scales default to ``KV_SCALE``."""
+    if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
+        other = name.replace("_int8", "")
+        raise ValueError(
+            f"{name} needs int8 pools, got {k_pool.dtype}/{v_pool.dtype} — "
+            f"float pools go through {other}")
+    n = k_pool.shape[0]
+    if k_scale is None:
+        k_scale = torch.full((n,), KV_SCALE, dtype=torch.float32,
+                             device=q.device)
+    if v_scale is None:
+        v_scale = torch.full((n,), KV_SCALE, dtype=torch.float32,
+                             device=q.device)
+    return k_scale, v_scale
 
 
 def _is_cuda(name, q) -> bool:
@@ -122,7 +169,7 @@ def paged_attention(
     start: Optional[torch.Tensor] = None,  # [B] int32 abs position of entry 0
 ) -> torch.Tensor:
     """Decode attention over float block pools."""
-    _check_shapes(q, k_pool, v_pool, block_table, lens, start)
+    _check_shapes(q, k_pool, v_pool, block_table, lens, start, qlen=1)
     if k_pool.dtype == torch.int8:
         raise ValueError("paged_attention needs float pools — int8 pools go "
                          "through paged_attention_int8")
@@ -146,22 +193,62 @@ def paged_attention_int8(
     start: Optional[torch.Tensor] = None,  # [B] int32 abs position of entry 0
 ) -> torch.Tensor:
     """Decode attention over int8 block pools with per-block scales."""
-    _check_shapes(q, k_pool, v_pool, block_table, lens, start)
-    if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
-        raise ValueError(
-            f"paged_attention_int8 needs int8 pools, got "
-            f"{k_pool.dtype}/{v_pool.dtype} — float pools go through "
-            f"paged_attention")
-    n = k_pool.shape[0]
-    if k_scale is None:
-        k_scale = torch.full((n,), KV_SCALE, dtype=torch.float32,
-                             device=q.device)
-    if v_scale is None:
-        v_scale = torch.full((n,), KV_SCALE, dtype=torch.float32,
-                             device=q.device)
+    _check_shapes(q, k_pool, v_pool, block_table, lens, start, qlen=1)
+    k_scale, v_scale = _int8_scales("paged_attention_int8", q, k_pool,
+                                    v_pool, k_scale, v_scale)
     if not _is_cuda("paged_attention_int8", q):
         return paged_attention_int8_dequant_ref(
             q, k_pool, v_pool, block_table, lens, k_scale=k_scale,
             v_scale=v_scale, window=window, start=start)
     return _launch(KERNEL_INT8, q, k_pool, v_pool, block_table, lens, start,
                    k_scale, v_scale, window)
+
+
+def paged_attention_verify(
+    q: torch.Tensor,            # [B, Hq, Q, D] float (post-RoPE), Q = k + 1
+    k_pool: torch.Tensor,       # [N, Hkv, block_len, D]
+    v_pool: torch.Tensor,       # [N, Hkv, block_len, D]
+    block_table: torch.Tensor,  # [B, M] int32 pool indices
+    lens: torch.Tensor,         # [B] int32: committed_len + 1
+    *,
+    window: Optional[int] = None,
+    start: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Small-q verify attention over float pools for speculative decoding:
+    query row ``j`` of each batch row attends ``lens + j`` keys. Row 0 is
+    exactly a decode step — at ``Q == 1`` this equals ``paged_attention``
+    bit for bit, on either device."""
+    _check_shapes(q, k_pool, v_pool, block_table, lens, start)
+    if k_pool.dtype == torch.int8:
+        raise ValueError("paged_attention_verify needs float pools — int8 "
+                         "pools go through paged_attention_verify_int8")
+    if not _is_cuda("paged_attention_verify", q):
+        return paged_attention_verify_ref(q, k_pool, v_pool, block_table,
+                                          lens, window=window, start=start)
+    return _launch(KERNEL_VERIFY, q, k_pool, v_pool, block_table, lens, start,
+                   None, None, window)
+
+
+def paged_attention_verify_int8(
+    q: torch.Tensor,            # [B, Hq, Q, D] float (post-RoPE)
+    k_pool: torch.Tensor,       # [N, Hkv, block_len, D] int8
+    v_pool: torch.Tensor,       # [N, Hkv, block_len, D] int8
+    block_table: torch.Tensor,  # [B, M] int32 pool indices
+    lens: torch.Tensor,         # [B] int32: committed_len + 1
+    *,
+    k_scale: Optional[torch.Tensor] = None,  # [N] f32 per-block (None→KV_SCALE)
+    v_scale: Optional[torch.Tensor] = None,
+    window: Optional[int] = None,
+    start: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Small-q verify attention over int8 pools with the int8 decode
+    numerics (at ``Q == 1`` bit-equal to ``paged_attention_int8``)."""
+    _check_shapes(q, k_pool, v_pool, block_table, lens, start)
+    k_scale, v_scale = _int8_scales("paged_attention_verify_int8", q, k_pool,
+                                    v_pool, k_scale, v_scale)
+    if not _is_cuda("paged_attention_verify_int8", q):
+        return paged_attention_verify_int8_dequant_ref(
+            q, k_pool, v_pool, block_table, lens, k_scale=k_scale,
+            v_scale=v_scale, window=window, start=start)
+    return _launch(KERNEL_VERIFY_INT8, q, k_pool, v_pool, block_table, lens,
+                   start, k_scale, v_scale, window)

@@ -1,16 +1,23 @@
-"""Plain PyTorch versions of paged decode attention (float and int8 pools).
+"""Plain PyTorch versions of paged decode and verify attention (float and
+int8 pools).
 
 Port of ``repro.kernels.paged_attention.ref``: gather each row's KV blocks
 from the shared pool into a contiguous ``[B, Hkv, M·blk, D]`` view (table
 entry ``i`` holds absolute positions ``start + i·blk ...``) and run masked
-decode attention over it.
+attention over it.
 
-  * ``paged_attention_ref`` — float pools; the float kernel's contract.
+  * ``paged_attention_ref`` — one-token decode over float pools; the float
+    kernel's contract.
   * ``paged_attention_int8_dequant_ref`` — int8 pools: q requantized with
     the static ``Q_SCALE``, exact int8·int8 score dots dequantized with the
     per-block K scale, f32 softmax, per-block V scale. This is the int8
     kernel's contract (the reference's Pallas kernel has the same one); the
     ITA integer-softmax oracle is a different function and is not ported.
+  * ``paged_attention_verify_ref`` / ``paged_attention_verify_int8_dequant_ref``
+    — the small-q speculative verify step: ``Q`` query rows per batch row,
+    row ``j`` attending ``lens + j`` keys. The ``Q`` rows are folded into
+    the GQA group axis (row ``g·Q + j``), so at ``Q == 1`` each is exactly
+    the decode version — the same operations on the same shapes.
 """
 
 from __future__ import annotations
@@ -36,6 +43,32 @@ def _valid_mask(s: int, lens, window, start, device) -> torch.Tensor:
     if window is not None:
         valid &= idx >= cl - window
     return valid
+
+
+def _verify_mask(s: int, qlen: int, lens, window, start, device
+                 ) -> torch.Tensor:
+    """[B, Q, S] per-query validity mask for the small-q verify step:
+    query row ``j`` sits ``j`` positions past the committed frontier, so
+    its effective length is ``lens + j`` (row 0 sees exactly what a decode
+    step sees)."""
+    idx = torch.arange(s, device=device)[None, None, :]
+    if start is not None:
+        idx = idx + torch.as_tensor(start, dtype=torch.int32,
+                                    device=device).reshape(-1, 1, 1)
+    cl = (torch.as_tensor(lens, dtype=torch.int32, device=device
+                          ).reshape(-1, 1, 1)
+          + torch.arange(qlen, dtype=torch.int32, device=device
+                         )[None, :, None])
+    valid = idx < cl
+    if window is not None:
+        valid &= idx >= cl - window
+    return valid
+
+
+def _fold_rows(valid: torch.Tensor, group: int) -> torch.Tensor:
+    """[B, Q, S] → [B, 1, G·Q, S]: the mask of folded row ``g·Q + j`` is
+    query ``j``'s."""
+    return valid.repeat(1, group, 1)[:, None]
 
 
 def gather_kv(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
@@ -73,6 +106,34 @@ def paged_attention_ref(
     return out.reshape(b, hq, 1, d).to(q.dtype)
 
 
+def paged_attention_verify_ref(
+    q: torch.Tensor,            # [B, Hq, Q, D] float — Q = spec_tokens + 1
+    k_pool: torch.Tensor,       # [N, Hkv, blk, D]
+    v_pool: torch.Tensor,       # [N, Hkv, blk, D]
+    block_table: torch.Tensor,  # [B, M] int32 pool indices
+    lens: torch.Tensor,         # [B] int32: committed_len + 1 (row 0's length)
+    *,
+    window: Optional[int] = None,
+    start: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Small-q verify over float pools: query row ``j`` attends ``lens + j``
+    keys (the committed history plus the ``j`` drafts written before it)."""
+    b, hq, qlen, d = q.shape
+    hkv = k_pool.shape[1]
+    group = hq // hkv
+    k = gather_kv(k_pool, block_table)      # [B, Hkv, S, D]
+    v = gather_kv(v_pool, block_table)
+    valid = _fold_rows(
+        _verify_mask(k.shape[2], qlen, lens, window, start, q.device), group)
+    qg = q.reshape(b, hkv, group * qlen, d).float()
+    logits = (qg @ k.float().transpose(-1, -2)) * (d ** -0.5)
+    logits = torch.where(valid, logits, NEG_INF)
+    p = softmax(logits)
+    p = torch.where(valid, p, 0.0)
+    out = p @ v.float()
+    return out.reshape(b, hq, qlen, d).to(q.dtype)
+
+
 def quantize_q(q: torch.Tensor) -> torch.Tensor:
     """q → int8-valued f32 with the static ``Q_SCALE`` (round half even),
     after the ``1/√D`` pre-scale — exactly the int8 kernel's q."""
@@ -100,21 +161,54 @@ def paged_attention_int8_dequant_ref(
     v8 = gather_kv(v_pool, block_table)
     s = k8.shape[2]
 
-    def entry_scale(scale):
-        """Per gathered entry [B, 1, 1, S] f32 (block scale repeated)."""
-        scale = torch.as_tensor(scale, dtype=torch.float32, device=q.device)
-        if scale.dim() == 0:
-            return scale
-        per_block = scale[block_table.long()]                 # [B, M]
-        return per_block.repeat_interleave(blk, dim=1)[:, None, None, :]
-
     qg = quantize_q(q).reshape(b, hkv, group, d)
     # int8·int8 dots summed in f32 are exact (|sum| ≤ D·127² < 2²⁴)
     s32 = qg @ k8.float().transpose(-1, -2)
-    logits = s32 * Q_SCALE * entry_scale(k_scale)
+    logits = s32 * Q_SCALE * _entry_scale(k_scale, block_table, blk, q.device)
     valid = _valid_mask(s, lens, window, start, q.device)
     logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
     p = softmax(logits)
     p = torch.where(valid[:, None, None, :], p, 0.0)
-    out = (p * entry_scale(v_scale)) @ v8.float()
+    out = (p * _entry_scale(v_scale, block_table, blk, q.device)) @ v8.float()
     return out.reshape(b, hq, 1, d).to(q.dtype)
+
+
+def _entry_scale(scale, block_table, blk: int, device) -> torch.Tensor:
+    """Per gathered entry [B, 1, 1, S] f32 (block scale repeated), or the
+    scalar scale as given."""
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=device)
+    if scale.dim() == 0:
+        return scale
+    per_block = scale[block_table.long()]                 # [B, M]
+    return per_block.repeat_interleave(blk, dim=1)[:, None, None, :]
+
+
+def paged_attention_verify_int8_dequant_ref(
+    q: torch.Tensor,            # [B, Hq, Q, D] float (post-RoPE)
+    k_pool: torch.Tensor,       # [N, Hkv, blk, D] int8
+    v_pool: torch.Tensor,       # [N, Hkv, blk, D] int8
+    block_table: torch.Tensor,  # [B, M] int32
+    lens: torch.Tensor,         # [B] int32: committed_len + 1
+    *,
+    k_scale,                    # python float or per-block [N] f32
+    v_scale,
+    window: Optional[int] = None,
+    start: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Small-q verify over int8 pools with the decode version's numerics
+    (the int8 verify kernel's contract), per-query masks."""
+    b, hq, qlen, d = q.shape
+    hkv, blk = k_pool.shape[1], k_pool.shape[2]
+    group = hq // hkv
+    k8 = gather_kv(k_pool, block_table)     # [B, Hkv, S, D] int8
+    v8 = gather_kv(v_pool, block_table)
+    qg = quantize_q(q).reshape(b, hkv, group * qlen, d)
+    s32 = qg @ k8.float().transpose(-1, -2)
+    logits = s32 * Q_SCALE * _entry_scale(k_scale, block_table, blk, q.device)
+    valid = _fold_rows(
+        _verify_mask(k8.shape[2], qlen, lens, window, start, q.device), group)
+    logits = torch.where(valid, logits, NEG_INF)
+    p = softmax(logits)
+    p = torch.where(valid, p, 0.0)
+    out = (p * _entry_scale(v_scale, block_table, blk, q.device)) @ v8.float()
+    return out.reshape(b, hq, qlen, d).to(q.dtype)

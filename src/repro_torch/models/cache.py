@@ -495,3 +495,36 @@ def prefill_write_kv(pool: torch.Tensor, single: torch.Tensor,
     # [1, Hkv, nb·blk, D] → [nb, Hkv, blk, D]
     src = src[0].reshape(hkv, nb, blk, d).transpose(0, 1)
     pool[block_ids.long()] = src.to(pool.dtype)
+
+
+def gather_prefix_kv(pool: torch.Tensor, prefix_ids: torch.Tensor,
+                     scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Gather cached prefix blocks into a contiguous batch-1 KV leaf.
+
+    ``pool`` [N, Hkv, blk, D] (one layer's block pool), ``prefix_ids`` [j]
+    int. Returns [1, Hkv, j·blk, D] in chain order — the keys/values a
+    suffix-resume prefill attends to at ``q_offset = j·blk``.
+
+    Int8 pools pass ``scale`` ([N] per-block f32): blocks are dequantized
+    to their float values (the suffix queries attend the stored K/V, while
+    a cache-off prefill attends the pre-quantization floats — so the int8
+    prefix-cache contract is token-level, not bit-level).
+    """
+    ids = torch.as_tensor(prefix_ids, device=pool.device).long()
+    g = pool[ids]                                  # [j, Hkv, blk, D]
+    if pool.dtype == torch.int8:
+        if scale is None:
+            raise ValueError("int8 prefix gather needs per-block scales")
+        g = dequantize_kv(g, scale[ids][:, None, None, None])
+    j, hkv, blk, d = g.shape
+    return g.transpose(0, 1).reshape(1, hkv, j * blk, d)
+
+
+def copy_block(cache, old: int, new: int) -> None:
+    """Copy-on-write: duplicate pool block ``old`` into ``new`` in every
+    layer's K/V pools and per-block scales, in place."""
+    for group in ("stacks", "tail"):
+        for c in cache.get(group, ()):
+            for name in ("k", "v", "kscale", "vscale"):
+                if name in c:
+                    c[name][:, new] = c[name][:, old]

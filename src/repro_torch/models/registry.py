@@ -40,6 +40,9 @@ class Arch:
     init_paged_cache: Optional[Callable] = None
     paged_decode_step: Optional[Callable] = None
     paged_prefill: Optional[Callable] = None
+    # small-q speculative verify step (score spec_tokens + 1 positions per
+    # slot against the paged pool in one pass)
+    paged_verify_step: Optional[Callable] = None
     # the family can store paged K/V as int8 blocks (+ per-block scales)
     paged_int8_kv: bool = False
 
@@ -50,6 +53,11 @@ class Arch:
     @property
     def supports_paged_prefill(self) -> bool:
         return self.paged_prefill is not None
+
+    @property
+    def supports_spec_decode(self) -> bool:
+        return (self.supports_paged and self.supports_paged_prefill
+                and self.paged_verify_step is not None)
 
     @property
     def supports_paged_int8(self) -> bool:
@@ -75,6 +83,8 @@ def build(cfg: ModelConfig) -> Arch:
         paged_prefill=lambda params, tokens, cache, slot, block_ids, **kw:
             mod.paged_prefill(params, tokens, cfg, cache, slot, block_ids,
                               **kw),
+        paged_verify_step=lambda params, cache, tokens, table, **kw:
+            mod.paged_verify_step(params, cache, tokens, cfg, table, **kw),
     )
 
 

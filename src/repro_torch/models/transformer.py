@@ -14,7 +14,14 @@ cache so callers read like the reference.
 INT8 serving (``serve_quant``): K/V are requantized at write time into int8
 blocks; decode runs W8A8 projections through ``kernels.int8_gemm`` and
 attention through ``paged_attention_int8``. As in the reference, prefill
-uses the *float* projections even on int8 archs; only decode is W8A8.
+uses the *float* projections even on int8 archs; decode and the
+speculative verify step are W8A8.
+
+Speculative decoding: ``paged_verify_step`` scores ``Q = spec_tokens + 1``
+positions per slot in one pass (``paged_attention_verify{,_int8}``); query
+row 0 is exactly a decode step. Prefix caching: ``paged_prefill`` resumes
+after ``start`` cached positions (``prefix_ids``), attending the gathered
+prefix K/V and computing only the suffix.
 """
 
 from __future__ import annotations
@@ -118,14 +125,28 @@ def _mlp(x, p, cfg: ModelConfig):
     return nn.dense(h, p["wd"])
 
 
-def _prefill_layer(xc, p, kind: str, cfg: ModelConfig, positions):
-    """One prefill layer application; returns (x, this layer's k, v)."""
+def _prefill_layer(xc, p, kind: str, cfg: ModelConfig, positions, *,
+                   kv_prefix=None):
+    """One prefill layer application; returns (x, this layer's k, v — the
+    newly computed positions only).
+
+    ``kv_prefix`` (prefix-cache resume): ``(k, v)`` of the cached prefix,
+    gathered from the pool. The suffix queries attend [prefix ++ suffix]
+    with ``q_offset`` placing row 0 right after the prefix, so the causal
+    and window masks bind by absolute position."""
     h = nn.rms_norm(xc, p["ln1"])
     q, k, v = _project_qkv(h, p, cfg, positions)
+    ka, va, q_off = k, v, 0
+    if kv_prefix is not None:
+        kp, vp = kv_prefix
+        ka = torch.cat([kp.to(k.dtype), k], dim=2)
+        va = torch.cat([vp.to(v.dtype), v], dim=2)
+        q_off = kp.shape[2]
     o = attn.chunked_attention(
-        q, k, v, causal=kind != "B",
+        q, ka, va, causal=kind != "B",
         window=cfg.local_window if kind == "L" else None,
         chunk_q=min(cfg.attn_chunk_q, xc.shape[1]),
+        q_offset=q_off,
     )
     xc = xc + nn.dense(_merge_heads(o), p["wo"])
     xc = xc + _mlp(nn.rms_norm(xc, p["ln2"]), p, cfg)
@@ -283,37 +304,166 @@ def paged_decode_step(params, cache, tokens, cfg: ModelConfig, table, *,
     return logits[:, 0], cache
 
 
+def _paged_verify_write(c, k_new, v_new, pos, table, block_len: int):
+    """Scatter Q consecutive tokens' k/v per row, in place: row ``b``'s
+    query ``j`` lands at position ``pos[b] + j`` through the block table.
+    Positions past the table (a full-length request's pad columns) divert
+    to the trash block — clipping onto the last table entry could
+    overwrite a real block's committed offsets. Pad columns past a row's
+    drafts land past every committed length: never attended, and always
+    rewritten before the frontier reaches them."""
+    rows_b = pos.shape[0]
+    qlen = k_new.shape[2]                          # [B, Hkv, Q, hd]
+    max_blocks = table.shape[1]
+    positions = pos[:, None] + torch.arange(qlen, dtype=torch.int32,
+                                            device=pos.device)[None, :]
+    bi_raw = positions // block_len
+    bi = torch.clamp(bi_raw, 0, max_blocks - 1)
+    rows = torch.arange(rows_b, device=pos.device)[:, None]
+    blk_ids = table[rows, bi].long()               # [B, Q] pool rows
+    blk_ids = torch.where(bi_raw >= max_blocks, 0, blk_ids)
+    off = (positions % block_len).long()
+    # advanced-index result axes lead: value shape [B, Q, Hkv, hd]
+    c["k"][blk_ids, :, off] = k_new.transpose(1, 2).to(c["k"].dtype)
+    c["v"][blk_ids, :, off] = v_new.transpose(1, 2).to(c["v"].dtype)
+    return c
+
+
+def _paged_verify_layer(x, p, c, kind, cfg: ModelConfig, pos, table, *,
+                        qparams=None):
+    """Small-q (speculative verify) pass through one layer: ``x`` carries
+    Q = spec_tokens + 1 positions per row — the last committed token plus
+    the drafts — all written and scored in one pool sweep. Query row 0
+    repeats ``_paged_decode_layer``'s math (same write, and the verify
+    attention's row 0 is exactly the decode mask)."""
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_attention_verify, paged_attention_verify_int8,
+    )
+    from repro_torch.models.cache import quantize_kv
+
+    int8_w = qparams is not None
+    int8_kv = c["k"].dtype == torch.int8
+    if int8_w and not int8_kv:
+        raise ValueError(
+            "int8 serving over float block pools is not supported: build "
+            "the paged cache with quantized=True so K/V live in int8 blocks")
+    h = nn.rms_norm(x, p["ln1"])
+    b, qlen = x.shape[:2]
+    hd = cfg.hd
+    block_len = c["k"].shape[2]
+    lin = functools.partial(_qlin, qparams) if int8_w else (
+        lambda name, y: nn.dense(y, p[name]))
+    q = lin("wq", h).reshape(b, qlen, cfg.n_heads, hd).transpose(1, 2)
+    k = lin("wk", h).reshape(b, qlen, cfg.n_kv_heads, hd).transpose(1, 2)
+    v = lin("wv", h).reshape(b, qlen, cfg.n_kv_heads, hd).transpose(1, 2)
+    positions = pos[:, None] + torch.arange(qlen, dtype=torch.int32,
+                                            device=pos.device)[None, :]
+    q = nn.rope(q, positions[:, None, :], cfg.rope_theta)
+    k = nn.rope(k, positions[:, None, :], cfg.rope_theta)
+
+    window = cfg.local_window if kind == "L" else None
+    tbl, start = _resolve_paged_table(table, kind)
+    lens = pos + 1
+    if int8_kv:
+        _paged_verify_write(c, quantize_kv(k, attn.KV_SCALE),
+                            quantize_kv(v, attn.KV_SCALE), pos, tbl,
+                            block_len)
+        o = paged_attention_verify_int8(
+            q.contiguous(), c["k"], c["v"], tbl, lens, k_scale=c["kscale"],
+            v_scale=c["vscale"], window=window, start=start)
+    else:
+        _paged_verify_write(c, k, v, pos, tbl, block_len)
+        o = paged_attention_verify(q.contiguous(), c["k"], c["v"], tbl, lens,
+                                   window=window, start=start)
+    x = x + lin("wo", _merge_heads(o))
+    h = nn.rms_norm(x, p["ln2"])
+    act = nn.ACTIVATIONS[cfg.act]
+    x = x + lin("wd", act(lin("wg", h), lin("wu", h)))
+    return x
+
+
+def paged_verify_step(params, cache, tokens, cfg: ModelConfig, table, *,
+                      qparams=None):
+    """Speculative-decode verify step: score Q = spec_tokens + 1 positions
+    per slot in one pass against the paged pool.
+
+    ``tokens`` [slots, Q] int32 — column 0 is each row's last committed
+    token, columns 1.. the host-drafted candidates (pad columns repeat
+    anything; their logits are ignored host-side). Logits row ``j`` is the
+    model's prediction after consuming ``tokens[:, :j+1]``.
+
+    Unlike ``paged_decode_step`` the position vector is host-owned:
+    ``cache["len"]`` is read, never advanced — the engine commits the
+    accepted count host-side and passes refreshed lengths next call (draft
+    K/V past the accept point stays in the pool as garbage that is never
+    attended and is overwritten before the frontier reaches it).
+
+    Returns ``(logits [slots, Q, V], cache)``.
+    """
+    x = nn.embed(tokens, params["embed"], cfg.compute_dtype)  # [slots, Q, D]
+    pos = cache["len"].to(torch.int32).expand(x.shape[0])
+    table = table.to(torch.int32)
+    for kind, where, g in _layers(cfg):
+        qp = None if qparams is None else _entry(qparams, where, g)
+        x = _paged_verify_layer(
+            x, _entry(params, where, g), _entry(cache, where, g), kind, cfg,
+            pos, table, qparams=qp)
+    x = nn.rms_norm(x, params["final_norm"])
+    table_w = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    return nn.unembed(x, table_w), cache
+
+
 def paged_prefill(params, tokens, cfg: ModelConfig, cache, slot, block_ids,
-                  *, true_len=None):
+                  *, true_len=None, prefix_ids=None, start=0):
     """Prefill straight into pool blocks: forward pass + per-layer K/V
     writes into the paged ``cache`` (in place). Returns ``(last-position
     logits, cache)``.
 
     ``tokens`` [1, S] may be right-padded to an admission bucket;
-    ``true_len`` is then the real length (logits are taken at position
-    ``true_len - 1`` and ``slot``'s position counter is set to it). Every
-    layer writes ``len(block_ids)`` blocks, the partially-valid tail block
-    whole. Prefix resume and ring writes are not ported yet."""
+    ``true_len`` is then the real (total) length (logits are taken at
+    position ``true_len - 1`` and ``slot``'s position counter is set to
+    it). Every layer writes ``len(block_ids)`` blocks, the partially-valid
+    tail block whole. ``prefix_ids``/``start`` resume a prefix-cache hit:
+    the first ``start = len(prefix_ids)·block_len`` positions already live
+    in pool blocks ``prefix_ids``, ``tokens`` carries only the suffix, and
+    the cached blocks are attended, not recomputed. Ring writes are not
+    ported yet."""
     return _paged_prefill_impl(params, tokens, cfg, cache, slot, block_ids,
-                               layer_fn=_prefill_layer, true_len=true_len)
+                               layer_fn=_prefill_layer, true_len=true_len,
+                               prefix_ids=prefix_ids, start=start)
 
 
 def _paged_prefill_impl(params, tokens, cfg: ModelConfig, cache, slot,
-                        block_ids, *, layer_fn, true_len=None):
+                        block_ids, *, layer_fn, true_len=None,
+                        prefix_ids=None, start=0):
     """Shared paged-prefill scaffold (block writes, layer loop, last-real-
     token logits, slot position update). Int8 pools requantize K/V
-    (``cache.quantize_kv``, static ``attn.KV_SCALE``) before the write."""
-    from repro_torch.models.cache import prefill_write_kv, quantize_kv
+    (``cache.quantize_kv``, static ``attn.KV_SCALE``) before the write.
+    With ``prefix_ids`` each layer gathers the cached prefix K/V (int8
+    pools dequantized by their per-block scales) before its suffix write —
+    the prefix blocks are disjoint from ``block_ids``."""
+    from repro_torch.models.cache import (
+        gather_prefix_kv, prefill_write_kv, quantize_kv,
+    )
 
     x = nn.embed(tokens, params["embed"], cfg.compute_dtype)
     s = x.shape[1]
-    positions = torch.arange(s, device=x.device)
+    start = int(start)
+    positions = start + torch.arange(s, device=x.device)
     block_ids = torch.as_tensor(block_ids, dtype=torch.long, device=x.device)
-    n = s if true_len is None else int(true_len)
+    if prefix_ids is not None:
+        prefix_ids = torch.as_tensor(prefix_ids, dtype=torch.long,
+                                     device=x.device)
+    n = start + s if true_len is None else int(true_len)
 
     for kind, where, g in _layers(cfg):
-        x, k, v = layer_fn(x, _entry(params, where, g), kind, cfg, positions)
         c = _entry(cache, where, g)
+        kv_prefix = None
+        if prefix_ids is not None:
+            kv_prefix = (gather_prefix_kv(c["k"], prefix_ids, c.get("kscale")),
+                         gather_prefix_kv(c["v"], prefix_ids, c.get("vscale")))
+        x, k, v = layer_fn(x, _entry(params, where, g), kind, cfg, positions,
+                           kv_prefix=kv_prefix)
         if c["k"].dtype == torch.int8:
             k = quantize_kv(k, attn.KV_SCALE)
             v = quantize_kv(v, attn.KV_SCALE)
@@ -322,7 +472,7 @@ def _paged_prefill_impl(params, tokens, cfg: ModelConfig, cache, slot,
 
     x = nn.rms_norm(x, params["final_norm"])
     table_w = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    last = x[:, n - 1:n]                      # last *real* position
+    last = x[:, n - 1 - start:n - start]      # last *real* position
     logits = nn.unembed(last, table_w)
     cache["len"][slot] = n
     return logits[:, 0], cache

@@ -14,6 +14,10 @@ tokens are computed to the paged backend. One iteration (``step()``) is
 one batched decode pass, at most ``admit_batch`` admission prefills (plus
 one forced admission), and a single device→host fetch of the sampled
 tokens; stop-sequence / EOS / length finishes are host-side checks on it.
+With ``spec_tokens = k > 0`` the decode pass becomes a verify pass over
+each slot's last token plus up to ``k`` n-gram drafts (``serve.spec``);
+greedy acceptance commits 1..k+1 tokens per slot per iteration, the same
+tokens the plain decode would have produced.
 
 The engine runs on ``cuda`` unless ``device="cpu"`` is passed; with no GPU
 and no explicit device, construction raises.
@@ -31,12 +35,13 @@ import torch
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models import registry
 from repro_torch.models.schema import leaves
-from repro_torch.serve.backends import make_backend
+from repro_torch.serve.backends import continuation_tokens, make_backend
 from repro_torch.serve.config import EngineConfig
 from repro_torch.serve.request import (
     FinishReason, Request, RequestState, StepOutput, normalize_stop_sequences,
 )
 from repro_torch.serve.scheduler import QOS_CLASSES, Scheduler, make_scheduler
+from repro_torch.serve.spec import accept_tokens, ngram_propose
 
 Handle = int
 
@@ -44,12 +49,8 @@ Handle = int
 def _refuse_unported(ec: EngineConfig, mesh) -> None:
     """Settings the port does not implement yet fail here, by name."""
     unported = []
-    if ec.prefix_cache:
-        unported.append("prefix_cache=True")
     if ec.prefill_chunk_tokens is not None:
         unported.append(f"prefill_chunk_tokens={ec.prefill_chunk_tokens}")
-    if ec.spec_tokens > 0:
-        unported.append(f"spec_tokens={ec.spec_tokens}")
     if mesh is not None:
         unported.append("mesh")
     if ec.backend != "paged":
@@ -90,7 +91,16 @@ class LLMEngine:
         self.slots: List[Optional[Request]] = [None] * ec.slots
         self.iterations = 0
         self.max_concurrent = 0           # peak active slots (capacity proof)
-        # per-iteration wall clock (bounded window) and committed tokens
+        # speculative decoding: active iff configured AND the backend
+        # supports it (an injected backend may not)
+        self._spec = (ec.spec_tokens
+                      if getattr(self.backend, "spec_supported", False)
+                      else 0)
+        self.spec_drafted = 0    # draft tokens proposed across iterations
+        self.spec_accepted = 0   # drafts accepted (excludes bonus tokens)
+        # per-iteration wall clock (bounded window) and committed tokens —
+        # a speculative iteration commits several, so walls are also
+        # reported per committed token
         self._iter_walls: deque = deque(maxlen=2048)
         self._iter_tokens: deque = deque(maxlen=2048)
         self._requests: Dict[int, Request] = {}
@@ -215,11 +225,15 @@ class LLMEngine:
     def _req_temperature(self, req: Request) -> float:
         return self.ec.effective_temperature(req.temperature)
 
-    def _sampling_vectors(self):
-        """(per-slot host (temps, topks, rids, steps), any_sampling) for
-        this iteration's decode pass; ``steps`` is each request's output
-        index (the sampling coordinate)."""
-        n = self.ec.slots
+    def _sampling_vectors(self, q: int = 1):
+        """(per-row host (temps, topks, rids, steps), any_sampling) for this
+        iteration's decode pass (``q = 1``) or verify pass (``q = k + 1``,
+        flat [slots · q] rows). Row ``i·q + j`` carries slot ``i``'s
+        coordinates with ``steps`` at the absolute output index
+        ``len(output) + j`` of the token it would commit — so a sampled
+        token is a function of (seed, rid, index), with speculation on or
+        off."""
+        n = self.ec.slots * q
         temps = np.zeros((n,), np.float32)
         topks = np.zeros((n,), np.int32)
         rids = np.zeros((n,), np.int32)
@@ -227,11 +241,36 @@ class LLMEngine:
         for i, r in enumerate(self.slots):
             if r is None:
                 continue
-            temps[i] = self._req_temperature(r)
-            topks[i] = r.top_k
-            rids[i] = r.rid
-            steps[i] = len(r.output)
+            lo = i * q
+            temps[lo:lo + q] = self._req_temperature(r)
+            topks[lo:lo + q] = r.top_k
+            rids[lo:lo + q] = r.rid
+            steps[lo:lo + q] = len(r.output) + np.arange(q)
         return (temps, topks, rids, steps), bool(temps.max(initial=0.0) > 0)
+
+    def _build_drafts(self, active):
+        """Token matrix + spans + per-slot drafts for one verify pass.
+
+        Row ``i`` of the [slots, k+1] matrix is the slot's last committed
+        token followed by its n-gram drafts; unused columns stay 0 (their
+        K/V lands past the frontier or in trash, their logits are
+        ignored). Each slot drafts at most ``remaining - 1`` tokens, so a
+        commit never exceeds ``max_new_tokens`` nor outgrows the block
+        reservation; ``spans[i] = drafts + 1`` is its write extent."""
+        k = self._spec
+        mat = np.zeros((self.ec.slots, k + 1), np.int32)
+        spans = [1] * self.ec.slots
+        drafts: Dict[int, List[int]] = {}
+        for i in active:
+            r = self.slots[i]
+            mat[i, 0] = r.output[-1]
+            cap = min(k, r.max_new_tokens - len(r.output) - 1)
+            d = ngram_propose(continuation_tokens(r), cap) if cap > 0 else []
+            mat[i, 1:1 + len(d)] = d
+            spans[i] = len(d) + 1
+            drafts[i] = d
+            self.spec_drafted += len(d)
+        return mat, spans, drafts
 
     def _admission_vectors(self, req: Request):
         temp = self._req_temperature(req)
@@ -264,10 +303,19 @@ class LLMEngine:
                   if r is not None and r.state == RequestState.RUNNING]
         at_dispatch = list(self.slots)  # snapshot: who owns each decode row
         self.max_concurrent = max(self.max_concurrent, len(active))
-        self.backend.begin_iteration(active, self.slots)
+        # speculative path: drafts built host-side, and one verify pass
+        # over [slots, k+1] positions replaces the decode pass
+        spec_drafts = spec_mat = spans = None
+        if self._spec and active:
+            spec_mat, spans, spec_drafts = self._build_drafts(active)
+        self.backend.begin_iteration(active, self.slots, spans=spans)
 
         dec_tok = None
-        if active:
+        if spec_drafts is not None:
+            samp, any_sampling = self._sampling_vectors(self._spec + 1)
+            dec_tok = self.backend.verify(active, self.slots, spec_mat, samp,
+                                          any_sampling)
+        elif active:
             samp, any_sampling = self._sampling_vectors()
             dec_tok = self.backend.decode(active, self.slots, samp,
                                           any_sampling)
@@ -342,7 +390,8 @@ class LLMEngine:
                         admitted.append((forced, slot, tok))
 
         finished = self._fetch_and_finish(dec_tok, active, at_dispatch,
-                                          admitted, pre_released, outputs)
+                                          admitted, pre_released, outputs,
+                                          spec_drafts)
         self.scheduler.note_iteration(granted, list(self.queue))
         self._iter_walls.append(time.perf_counter() - it_t0)
         self._iter_tokens.append(
@@ -373,10 +422,18 @@ class LLMEngine:
         finished.append(req)
 
     def _fetch_and_finish(self, dec_tok, active, at_dispatch, admitted,
-                          pre_released, outputs) -> List[Request]:
+                          pre_released, outputs,
+                          spec_drafts=None) -> List[Request]:
         """One device→host fetch of this iteration's sampled tokens (decode
         batch + every admitted request's first token), then the host-side
-        finish bookkeeping: stop sequences, EOS, length."""
+        finish bookkeeping: stop sequences, EOS, length.
+
+        ``spec_drafts`` (speculation) maps slot → its drafts; ``dec_tok``
+        is then the [slots, Q] verify choices, greedy acceptance commits
+        the longest agreeing prefix per slot plus the bonus token, and the
+        backend rolls rejected-draft blocks back. Every committed position
+        is scanned for finishes — a stop/EOS match truncates the accepted
+        tail behind it."""
         finished: List[Request] = []
         parts = []
         if dec_tok is not None:
@@ -388,12 +445,30 @@ class LLMEngine:
         self.backend.transfers += 1
         n_dec = 0 if dec_tok is None else dec_tok.numel()
         dec_vals, adm_vals = host[:n_dec], host[n_dec:]
+        if spec_drafts is not None:
+            q = self._spec + 1
+            dec_vals = [dec_vals[i * q:(i + 1) * q]
+                        for i in range(len(dec_vals) // q)]
         now = time.perf_counter()
         if dec_tok is not None:
             for i in active:
                 r = at_dispatch[i]
-                r.output.append(int(dec_vals[i]))
-                reason = r.check_finish()
+                if spec_drafts is not None:
+                    d = spec_drafts.get(i, [])
+                    committed = accept_tokens(d, dec_vals[i][:len(d) + 1])
+                    self.spec_accepted += len(committed) - 1
+                    # roll back and advance the frontier — except for a slot
+                    # already recycled this iteration (a length-finishing
+                    # pre-release or a preemption victim): its rid left the
+                    # allocator, and its tokens commit below anyway
+                    if r.state != RequestState.PREEMPTED \
+                            and i not in pre_released:
+                        self.backend.commit(i, r, len(committed))
+                else:
+                    committed = [int(dec_vals[i])]
+                before = len(r.output)
+                r.output.extend(committed)
+                reason = r.check_finish(new_tokens=len(committed))
                 if reason:
                     # a victim preempted this very iteration may finish on
                     # the token it decoded before eviction: it holds no
@@ -405,10 +480,16 @@ class LLMEngine:
                     else:
                         self._finish(r, i, reason, now, i in pre_released,
                                      finished)
-                outputs.append(StepOutput(
-                    rid=r.rid, token=r.output[-1], state=r.state,
-                    finish_reason=r.finish_reason if reason else None,
-                    qos=r.qos))
+                # one StepOutput per surviving committed token; only the
+                # last carries the finish reason
+                tail = r.output[before:]
+                for j, t in enumerate(tail):
+                    last = j == len(tail) - 1
+                    outputs.append(StepOutput(
+                        rid=r.rid, token=t, state=r.state,
+                        finish_reason=(r.finish_reason
+                                       if reason and last else None),
+                        qos=r.qos))
         for (req, slot, _), tok in zip(admitted, adm_vals):
             req.output.append(int(tok))
             if req.first_token_at is None:
@@ -426,8 +507,10 @@ class LLMEngine:
     # -- observability -----------------------------------------------------
 
     def metrics(self) -> Dict[str, float]:
-        """Engine-level serving counters and decode-iteration wall
-        statistics (jitter = p99 − p50 iteration wall)."""
+        """Engine-level serving counters, decode-iteration wall statistics
+        (jitter = p99 − p50 iteration wall; per-token walls normalise each
+        iteration by the tokens it committed), speculation counters and,
+        with prefix caching, the cache economics."""
         b = self.backend
         walls = np.asarray(self._iter_walls, np.float64)
         p50 = float(np.percentile(walls, 50)) if walls.size else 0.0
@@ -437,7 +520,8 @@ class LLMEngine:
         per_tok = (walls[-m:] / np.maximum(toks[-m:], 1.0)) if m else walls
         tp50 = float(np.percentile(per_tok, 50)) if per_tok.size else 0.0
         tp99 = float(np.percentile(per_tok, 99)) if per_tok.size else 0.0
-        return {
+        drafted = float(self.spec_drafted)
+        out = {
             "iterations": float(self.iterations),
             "decode_dispatches": float(b.decode_dispatches),
             "transfers": float(b.transfers),
@@ -447,7 +531,30 @@ class LLMEngine:
             "decode_iter_jitter_ms": (p99 - p50) * 1e3,
             "iter_wall_per_token_p50_ms": tp50 * 1e3,
             "iter_wall_per_token_p99_ms": tp99 * 1e3,
+            "spec_drafted": drafted,
+            "spec_accepted": float(self.spec_accepted),
+            "spec_accept_rate": (self.spec_accepted / drafted
+                                 if drafted else 0.0),
         }
+        alloc = getattr(b, "alloc", None)
+        if alloc is None or not getattr(b, "prefix_caching", False):
+            return out
+        looked = alloc.hit_blocks + alloc.miss_blocks
+        total = b.prefill_tokens_total
+        out.update({
+            "prefix_cache_hit_blocks": float(alloc.hit_blocks),
+            "prefix_cache_miss_blocks": float(alloc.miss_blocks),
+            "prefix_cache_hit_rate": (alloc.hit_blocks / looked
+                                      if looked else 0.0),
+            "prefix_cache_evictions": float(alloc.evictions),
+            "prefix_cache_cow_copies": float(alloc.cow_copies),
+            "prefix_cached_blocks": float(alloc.cached_blocks),
+            "prefill_tokens_total": float(total),
+            "prefill_tokens_skipped": float(b.prefill_tokens_skipped),
+            "prefill_skip_rate": (b.prefill_tokens_skipped / total
+                                  if total else 0.0),
+        })
+        return out
 
     # -- run loops ---------------------------------------------------------
 

@@ -7,22 +7,26 @@ int8 block storage (+ per-block scales) for quantized archs. One decode
 pass over all slots per iteration, admission prefills, and the engine's
 single device→host token fetch per iteration.
 
-Not ported yet (refused at construction with ``NotImplementedError``):
-the ``slot``/``arena`` backends, ring blocks for sliding-window layers,
-prefix caching, chunked prefill, speculative decoding and mesh sharding.
+Prefix caching (content-addressed block sharing with copy-on-write and
+suffix-resume prefill) and speculative decoding (small-q verify, commit
+and block rollback) run on it. Not ported yet (refused at construction with
+``NotImplementedError``): the ``slot``/``arena`` backends, ring blocks for
+sliding-window layers, chunked prefill and mesh sharding.
 """
 
 from __future__ import annotations
 
 import hashlib
-from typing import List, Optional, Sequence
+from collections import OrderedDict
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.models import registry
 from repro_torch.models.cache import (
-    BlockAllocator, PagedLayout, blocks_for, bucket_for,
+    BlockAllocator, PagedLayout, blocks_for, bucket_for, chain_key,
+    chain_seed, copy_block, prefix_chain_keys,
 )
 from repro_torch.serve.config import EngineConfig
 from repro_torch.serve.request import Request
@@ -105,7 +109,8 @@ class _BackendBase:
         """Submit-time backend checks (engine already checked max_len)."""
 
     def begin_iteration(self, active: List[int],
-                        slots: Sequence[Optional[Request]]) -> None:
+                        slots: Sequence[Optional[Request]],
+                        spans=None) -> None:
         """Host bookkeeping before this iteration's decode dispatch."""
 
     def can_admit(self, req: Request) -> bool:
@@ -158,6 +163,18 @@ class PagedBackend(_BackendBase):
     against worst-case block reservations, grows slots lazily at block
     boundaries, and recycles blocks on completion, preemption and abort.
     Empty rows decode against the trash block and are ignored host-side.
+
+    **Prefix caching** (``prefix_cache=True``): full blocks are published
+    under chained content keys as prefill writes them and as decode
+    completes them; an admission maps the longest published prefix of its
+    continuation straight into its table (shared, refcounted — never
+    rewritten) and prefills only the uncached suffix. A writer about to
+    touch a shared block gets a private copy first (copy-on-write).
+
+    **Speculative decoding** (``spec_tokens > 0``): the engine replaces the
+    decode pass with ``verify`` — one small-q pass over each slot's last
+    committed token plus its drafts — and ``commit``s the accepted count
+    per slot, rolling rejected blocks back to the allocator.
     """
 
     name = "paged"
@@ -170,10 +187,26 @@ class PagedBackend(_BackendBase):
         if num_blocks is None:  # match the dense arena's token budget
             num_blocks = blocks_for(ec.slots * ec.max_len, ec.block_len) + 1
         self.layout = PagedLayout(ec.block_len, num_blocks, ec.max_len)
-        self.alloc = BlockAllocator(self.layout)
+        self.prefix_caching = bool(ec.prefix_cache)
+        self.alloc = BlockAllocator(self.layout,
+                                    prefix_cache=self.prefix_caching)
         self.table = np.zeros((ec.slots, self.layout.max_blocks), np.int32)
         self._slot_len = [0] * ec.slots   # host mirror of active rows' len
         self._tables_dev: Optional[torch.Tensor] = None
+        # prefix cache: per-slot chain keys of the full blocks written so
+        # far (prompt at prefill, decode blocks as they complete), and a
+        # bounded per-rid chain-key memo — can_admit() re-keys every queued
+        # request every iteration, and the sha256 chain over a long shared
+        # prefix would otherwise be recomputed each time
+        self._slot_keys: List[List[bytes]] = [[] for _ in range(ec.slots)]
+        self._key_memo: "OrderedDict[int, Tuple[int, List[bytes]]]" = \
+            OrderedDict()
+        self.prefill_tokens_skipped = 0
+        self.prefill_tokens_total = 0
+        # per-slot admission state between prefill_begin and the final
+        # prefill_chunk
+        self._chunk: Dict[int, dict] = {}
+        self.spec_supported = arch.supports_spec_decode
         self.quantized = bool(arch.cfg.serve_quant)
         self.cache = arch.init_paged_cache(ec.slots, self.layout,
                                            device=device)
@@ -206,6 +239,48 @@ class PagedBackend(_BackendBase):
         return blocks_for(max(self._pre_len(req), final_pos),
                           self.ec.block_len)
 
+    # -- content-addressed prefix keys -------------------------------------
+
+    @staticmethod
+    def _chain_salt(req: Request) -> bytes:
+        """Per-request hash-chain salt: requests whose K/V depends on more
+        than the token prefix (conditioning inputs) must never share
+        blocks across different conditioning."""
+        if req.embeds is None:
+            return b""
+        arr = np.ascontiguousarray(np.asarray(req.embeds, np.float32))
+        return hashlib.sha256(arr.tobytes()).digest()
+
+    _KEY_MEMO_CAP = 256
+
+    def _chain_keys(self, req: Request) -> List[bytes]:
+        """Chained content keys for every full block of ``req``'s
+        continuation (uncapped — slice with ``_hit_limit`` for lookup),
+        memoised per rid on continuation length."""
+        n = len(req.prompt) + len(req.output)
+        hit = self._key_memo.get(req.rid)
+        if hit is not None and hit[0] == n:
+            self._key_memo.move_to_end(req.rid)
+            return hit[1]
+        keys = prefix_chain_keys(continuation_tokens(req), self.ec.block_len,
+                                 salt=self._chain_salt(req))
+        self._key_memo[req.rid] = (n, keys)
+        self._key_memo.move_to_end(req.rid)
+        while len(self._key_memo) > self._KEY_MEMO_CAP:
+            self._key_memo.popitem(last=False)
+        return keys
+
+    def _hit_limit(self, req: Request) -> int:
+        """Max cache-hit blocks: the suffix must keep ≥ 1 real token (the
+        last-position logits are computed, never looked up)."""
+        n = len(req.prompt) + len(req.output)
+        return max(0, (n - 1) // self.ec.block_len)
+
+    def _admit_keys(self, req: Request) -> Sequence[bytes]:
+        if not self.prefix_caching:
+            return ()
+        return self._chain_keys(req)[:self._hit_limit(req)]
+
     def validate_request(self, req: Request) -> None:
         need = self._max_blocks_needed(req)
         usable = self.layout.usable_blocks
@@ -214,16 +289,28 @@ class PagedBackend(_BackendBase):
                 f"request {req.rid} needs {need} blocks; pool has {usable}")
 
     def can_admit(self, req: Request) -> bool:
-        return self.alloc.can_admit(self._max_blocks_needed(req))
+        return self.alloc.can_admit(self._max_blocks_needed(req),
+                                    self._admit_keys(req))
 
     def release(self, slot: int, req: Request) -> None:
         """Recycle a slot's blocks and point its table row at trash. Also
-        the ``abort()`` path."""
+        the ``abort()`` path. With prefix caching the release decrefs:
+        shared blocks survive under their other references, and published
+        sole-owned blocks move to the cached LRU (reusable K/V)."""
         self.alloc.release(req.rid)
         self.table[slot, :] = 0
         self._touch_tables()
         self._slot_len[slot] = 0
+        self._slot_keys[slot] = []
+        self._key_memo.pop(req.rid, None)
+        self._chunk.pop(slot, None)
         req.prefill_pos = 0
+
+    def forget(self, req: Request) -> None:
+        """Drop the chain-key memo of a request that never reached
+        ``release`` (queued abort, finish before re-admission): a reused
+        rid must not inherit its predecessor's keys."""
+        self._key_memo.pop(req.rid, None)
 
     def evict_for(self, req, candidates, slots):
         """Evict victims (in the scheduler's preference order) until the
@@ -259,19 +346,50 @@ class PagedBackend(_BackendBase):
 
     # -- iteration hooks ---------------------------------------------------
 
-    def begin_iteration(self, active, slots):
-        """Grow any slot whose next write position crosses into a new block
-        (drawn from its admission-time reservation — can never fail)."""
+    def begin_iteration(self, active, slots, spans=None):
+        """Host bookkeeping before the decode (or verify) pass. ``spans``
+        (speculation): slot ``i`` writes positions ``_slot_len[i] ..
+        _slot_len[i] + spans[i] - 1`` this iteration; ``None`` is the
+        one-position decode. Grows any slot whose span crosses a block
+        boundary (from its admission-time reservation — can never fail),
+        publishes completed blocks, and copies a shared block before this
+        iteration writes into it."""
         blk = self.ec.block_len
         for i in active:
             req = slots[i]
-            needed = self._slot_len[i] // blk + 1
+            span = 1 if spans is None else spans[i]
+            last_pos = self._slot_len[i] + span - 1
+            needed = last_pos // blk + 1
             owned = self.alloc.owned(req.rid)
             while len(owned) < needed:
                 b = self.alloc.grow(req.rid)
                 self.table[i, len(owned)] = b
                 self._touch_tables()
                 owned.append(b)
+            if not self.prefix_caching:
+                continue
+            # publish decode blocks as they complete: position p holds the
+            # K/V of seq[p], and the engine appends fetched tokens before
+            # the next begin_iteration, so seq always covers _slot_len
+            n_full = self._slot_len[i] // blk
+            keys = self._slot_keys[i]
+            if len(keys) < n_full:
+                seq = continuation_tokens(req)
+                salt = self._chain_salt(req)
+                while len(keys) < n_full:
+                    idx = len(keys)
+                    prev = keys[idx - 1] if idx else chain_seed(blk, salt)
+                    key = chain_key(prev, seq[idx * blk:(idx + 1) * blk])
+                    keys.append(key)
+                    self.alloc.register(req.rid, idx, key)
+            # copy-on-write guard over the whole write span
+            for tail in range(self._slot_len[i] // blk, last_pos // blk + 1):
+                moved = self.alloc.ensure_writable(req.rid, tail)
+                if moved is not None:
+                    old, new = moved
+                    copy_block(self.cache, old, new)
+                    self.table[i, tail] = new
+                    self._touch_tables()
 
     def decode(self, active, slots, samp, any_sampling):
         logits, self.cache = self.arch.paged_decode_step(
@@ -287,40 +405,131 @@ class PagedBackend(_BackendBase):
             self._slot_len[i] += 1
         return tok
 
+    def verify(self, active, slots, tokens, samp, any_sampling):
+        """One speculative verify pass — the decode replacement under
+        ``spec_tokens > 0``. ``tokens`` [slots, Q] carries each row's last
+        committed token in column 0 and its drafts after; ``samp`` are the
+        flat [slots · Q] per-position sampling vectors. Returns the chosen
+        tokens [slots, Q] on the device. ``_slot_len`` is not advanced
+        here: the engine's acceptance drives ``commit`` per slot."""
+        packed = np.concatenate(
+            [np.asarray(self._slot_len, np.int32)[:, None],
+             np.asarray(tokens, np.int32)], axis=1)
+        dev = torch.from_numpy(packed).to(self.device)  # one upload
+        # the position vector is host-owned under speculation: inject this
+        # iteration's committed lengths; the verify step never advances it
+        self.cache["len"] = dev[:, 0]
+        logits, self.cache = self.arch.paged_verify_step(
+            self.params, self.cache, dev[:, 1:], self._tables(),
+            qparams=self.qparams)
+        b, qlen, vocab = logits.shape
+        # flat per-position sampling: row i·Q + j carries slot i's
+        # coordinates with the absolute output index of position j
+        tok = sample_tokens_per_slot(logits.reshape(b * qlen, vocab), *samp,
+                                     self.ec.seed, any_sampling=any_sampling)
+        self.decode_dispatches += 1
+        return tok.reshape(b, qlen)
+
+    def commit(self, slot: int, req: Request, accepted: int) -> None:
+        """Commit ``accepted`` tokens from the last verify pass and roll the
+        rejected tail back at block granularity: blocks grown past the new
+        frontier return to the allocator (published keys retracted) and
+        their table entries re-point at trash. K/V written past the accept
+        point inside kept blocks stays as garbage that is never attended
+        and is overwritten before the frontier reaches it."""
+        self._slot_len[slot] += accepted
+        keep = (self._slot_len[slot] - 1) // self.ec.block_len + 1
+        dropped = self.alloc.shrink(req.rid, keep)
+        if dropped:
+            self.table[slot, keep:keep + len(dropped)] = 0
+            self._touch_tables()
+
     def prefill(self, req: Request, slot: int, samp, any_sampling):
-        """Reserve blocks, run one paged prefill (K/V written straight into
-        pool blocks), fill the slot's table row; returns the on-device
-        sampled first token."""
+        """Admission: ``prefill_begin`` plus one unbounded
+        ``prefill_chunk``; returns the on-device sampled first token."""
+        self.prefill_begin(req, slot)
+        _, tok = self.prefill_chunk(req, slot, None, samp, any_sampling)
+        return tok
+
+    def prefill_begin(self, req: Request, slot: int) -> None:
+        """Admission bookkeeping: reserve the request's worst-case block
+        set, map any cached prefix hit (shared blocks, increfed), and set
+        the prefill cursor past the mapped prefix. No device work."""
         blk = self.ec.block_len
         toks = continuation_tokens(req)
         n = toks.size
         pre_len = self._pre_len(req)
+        j = 0
+        keys_full: List[bytes] = []
+        if self.prefix_caching:
+            keys_full = self._chain_keys(req)
+            j = len(self.alloc.lookup(keys_full[:self._hit_limit(req)]))
         block_ids = np.asarray(
             self.alloc.admit(req.rid, pre_len // blk,
-                             self._max_blocks_needed(req)), np.int32)
+                             self._max_blocks_needed(req),
+                             keys=keys_full[:j]), np.int32)
+        # the table row stays at trash until the prefill completes
         self.table[slot, :] = 0
         self._touch_tables()
+        self._key_memo.pop(req.rid, None)
+        req.prefill_pos = j * blk
+        self.prefill_tokens_total += j * blk
+        self.prefill_tokens_skipped += j * blk
+        self._chunk[slot] = dict(toks=toks, n=n, pre_len=pre_len,
+                                 block_ids=block_ids, keys=keys_full)
+
+    def prefill_chunk(self, req: Request, slot: int, budget, samp,
+                      any_sampling):
+        """The prefill dispatch for the admission started by
+        ``prefill_begin``: the whole uncached suffix, resumed after the
+        cached prefix (``start`` = the cursor; the prefix blocks are
+        gathered and attended). Returns ``(tokens_consumed, first token)``.
+        A token ``budget`` (chunked prefill) is not ported yet."""
+        if budget is not None:
+            raise NotImplementedError(
+                "prefill_chunk_tokens (chunked prefill) is not ported yet")
+        st = self._chunk[slot]
+        blk = self.ec.block_len
+        c = req.prefill_pos
+        n = st["n"]
+        length = n - c
+        toks = st["toks"]
+        block_ids = st["block_ids"]
+        pb = c // blk                      # resume depth in blocks
         if self._bucketing:
-            width = pre_len
-            padded = np.zeros((1, width), np.int32)
-            padded[0, :n] = toks
-            tokens, true_len = padded, n
+            # the full admission bucket, padded
+            width = st["pre_len"] - c
+            tokens = np.zeros((1, width), np.int32)
+            tokens[0, :length] = toks[c:]
+            true_len = n
         else:
-            width = n
-            tokens, true_len = toks[None, :], None
-        suffix_ids = block_ids[:blocks_for(width, blk)]
+            width = length
+            tokens = toks[None, c:]
+            true_len = None
+        suffix_ids = block_ids[pb:blocks_for(c + width, blk)]
+        prefix_ids = (torch.from_numpy(block_ids[:pb]).to(self.device)
+                      if pb else None)
         logits, self.cache = self.arch.paged_prefill(
             self.params, torch.from_numpy(tokens).to(self.device), self.cache,
             slot, torch.from_numpy(suffix_ids).to(self.device),
-            true_len=true_len)
+            true_len=true_len, prefix_ids=prefix_ids, start=c)
         tok = sample_tokens_per_slot(logits, *samp, self.ec.seed,
                                      any_sampling=any_sampling)  # [1]
         self.last_tok[slot] = tok[0]
+        self.prefill_tokens_total += length
         req.prefill_pos = n
+        if self.prefix_caching:
+            # publish every freshly written full block (first-wins on a
+            # key collision: the duplicate stays private)
+            for idx in range(pb, n // blk):
+                self.alloc.register(req.rid, idx, st["keys"][idx])
+            self._slot_keys[slot] = list(st["keys"][:n // blk])
+        # the slot becomes a decode row: fill its table
         self.table[slot, :block_ids.size] = block_ids
         self._touch_tables()
         self._slot_len[slot] = n
-        return tok[0]
+        del self._chunk[slot]
+        return length, tok[0]
 
 
 def make_backend(name: str, arch: registry.Arch, params, ec: EngineConfig,

@@ -5,16 +5,17 @@
 and validation, with two differences: ``backend`` defaults to ``"paged"``
 (the only backend ported), and there is no ``attn_backend`` — the port has
 no per-op backend ladder, the device decides which version of a kernel
-runs. Settings the port does not implement yet (``prefix_cache``,
-``prefill_chunk_tokens``, ``spec_tokens > 0``, a backend other than
-``paged``) are accepted here and refused by ``LLMEngine`` at construction
-with ``NotImplementedError``.
+runs. Settings the port does not implement yet (``prefill_chunk_tokens``,
+a backend other than ``paged``) are accepted here and refused by
+``LLMEngine`` at construction with ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+from repro_torch.serve.spec import SPEC_METHODS
 
 # execution backends (the reference's set) and their legacy aliases
 BACKENDS = ("slot", "arena", "paged")
@@ -53,10 +54,18 @@ class EngineConfig:
     # pool matches a dense arena's token budget (slots · max_len).
     block_len: int = 16
     num_blocks: Optional[int] = None
-    # not ported yet (refused by LLMEngine when set)
+    # content-addressed prefix caching over the block pool: published
+    # full blocks are shared across requests (refcounts, copy-on-write,
+    # LRU reuse) and an admission prefills only its uncached suffix
     prefix_cache: bool = False
-    prefill_chunk_tokens: Optional[int] = None
+    # speculative decoding: up to spec_tokens drafts per running slot are
+    # scored in one small-q verify dispatch; greedy acceptance keeps the
+    # committed stream token-identical to spec_tokens=0
     spec_tokens: int = 0
+    # draft method: "ngram" — prompt lookup over the request's own tokens
+    spec_method: str = "ngram"
+    # not ported yet (refused by LLMEngine when set)
+    prefill_chunk_tokens: Optional[int] = None
     backend: str = "paged"
     # admission policy: "fcfs" | "bounded" | "qos" (see scheduler.py)
     scheduler: str = "bounded"
@@ -97,6 +106,10 @@ class EngineConfig:
         if self.spec_tokens < 0:
             raise ValueError(
                 f"spec_tokens must be >= 0, got {self.spec_tokens}")
+        if self.spec_method not in SPEC_METHODS:
+            raise ValueError(
+                f"unknown spec_method {self.spec_method!r} "
+                f"(supported: {', '.join(SPEC_METHODS)})")
         if self.be_token_share is not None and not (
                 0.0 < self.be_token_share < 1.0):
             raise ValueError(

@@ -8,10 +8,12 @@ a machine that has only PyTorch::
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
 Contracts: the int8 GEMM is bit-exact with ``int8_gemm_ref``; paged
-attention is allclose with ``paged_attention_ref`` /
-``paged_attention_int8_dequant_ref`` (f32 outputs: online-softmax
-reordering only, 1e-4; bf16 outputs: both sides round an f32 result to
-bf16, 1.6e-2 ≈ two bf16 ulps).
+attention (decode and verify) is allclose with ``paged_attention_ref`` /
+``paged_attention_int8_dequant_ref`` and their verify versions (f32
+outputs: online-softmax reordering only, 1e-4; bf16 outputs: both sides
+round an f32 result to bf16, 1.6e-2 ≈ two bf16 ulps). The verify kernels
+at ``Q = 1``, and row 0 of any ``Q``, are bit-equal to the decode kernels
+at the same lengths.
 """
 
 import numpy as np
@@ -25,6 +27,7 @@ from repro_torch.kernels.int8_gemm.ref import int8_gemm_ref
 from repro_torch.kernels.paged_attention import ops as attn_ops
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_int8_dequant_ref, paged_attention_ref,
+    paged_attention_verify_int8_dequant_ref, paged_attention_verify_ref,
 )
 
 ACT_SCALES = (4.0 / 127, 4.0 / 127)
@@ -83,15 +86,17 @@ def test_int8_gemm_wrapper_checks_inputs(cuda_device):
         gemm_ops.int8_gemm_cuda(x.cpu(), w, bias, mult, shift)
 
 
+LENS = [0, 1, 17, 64, 130, 255, 400, 544]
+
+
 def _attn_case(dev, *, pool, hq=32, hkv=2, d=128, blk=16, seed=0,
-               window=None, start=False):
+               window=None, start=False, qlen=1, lens=LENS):
     g = torch.Generator(device=dev).manual_seed(seed)
-    lens = [0, 1, 17, 64, 130, 255, 400, 544]
     b = len(lens)
     m = (max(lens) + 2 * blk + blk - 1) // blk
     n = b * m + 1
     int8 = pool == torch.int8
-    q = torch.randn((b, hq, 1, d), generator=g, device=dev) * 2.0
+    q = torch.randn((b, hq, qlen, d), generator=g, device=dev) * 2.0
     if int8:
         kp = torch.randint(-127, 128, (n, hkv, blk, d), generator=g,
                            device=dev, dtype=torch.int8)
@@ -151,6 +156,58 @@ def test_paged_attention_int8_with_bf16_queries(cuda_device):
                                rtol=1.6e-2)
 
 
+VERIFY_LENS = [max(x, 1) for x in LENS]   # verify rows attend lens ≥ 1
+
+
+@pytest.mark.parametrize("pool", [torch.float32, torch.bfloat16, torch.int8],
+                         ids=["f32", "bf16", "int8"])
+@pytest.mark.parametrize("window,start", [(None, False), (100, True)],
+                         ids=["full", "window-start"])
+@pytest.mark.parametrize("hq,d,qlen", [(32, 128, 5), (4, 16, 3)],
+                         ids=["glm4-k4", "smoke-k2"])
+def test_paged_attention_verify_matches_plain_version(cuda_device, pool,
+                                                      window, start, hq, d,
+                                                      qlen):
+    args, kw = _attn_case(cuda_device, pool=pool, hq=hq, d=d, window=window,
+                          start=start, qlen=qlen, lens=VERIFY_LENS)
+    int8 = pool == torch.int8
+    kern = attn_ops.KERNEL_VERIFY_INT8 if int8 else attn_ops.KERNEL_VERIFY
+    op = (attn_ops.paged_attention_verify_int8 if int8
+          else attn_ops.paged_attention_verify)
+    ref = (paged_attention_verify_int8_dequant_ref if int8
+           else paged_attention_verify_ref)
+    before = kern.launches
+    out = op(*args, **kw)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = ref(*args, **kw)
+    tol = 1.6e-2 if out.dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("pool", [torch.float32, torch.bfloat16, torch.int8],
+                         ids=["f32", "bf16", "int8"])
+def test_verify_kernels_reduce_to_decode_bit_for_bit(cuda_device, pool):
+    """B4/B5 at Q = 1 equal B1/B2 exactly, and row 0 of a Q = 5 verify
+    equals the decode at the same lens exactly."""
+    int8 = pool == torch.int8
+    dec = attn_ops.paged_attention_int8 if int8 else attn_ops.paged_attention
+    ver = (attn_ops.paged_attention_verify_int8 if int8
+           else attn_ops.paged_attention_verify)
+    for var in (dict(), dict(window=100, start=True)):
+        args, kw = _attn_case(cuda_device, pool=pool, qlen=5,
+                              lens=VERIFY_LENS, **var)
+        q = args[0]
+        if int8:
+            q = q.bfloat16()
+        q1 = q[:, :, :1].contiguous()
+        rest = args[1:]
+        assert torch.equal(ver(q1, *rest, **kw), dec(q1, *rest, **kw))
+        out5 = ver(q.contiguous(), *rest, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out5[:, :, :1], dec(q1, *rest, **kw))
+
+
 def test_serving_path_on_card_agrees_with_cpu_plain_versions(cuda_device):
     """Smoke-size glm4-9b (float32), float and int8 pools: the engine on
     the card (kernels) and on the CPU (plain versions) give the same greedy
@@ -179,3 +236,38 @@ def test_serving_path_on_card_agrees_with_cpu_plain_versions(cuda_device):
             outs.append([eng.request(h).output for h in hs])
         same = sum(a == b for x, y in zip(*outs) for a, b in zip(x, y))
         assert same >= 0.9 * 72, (quant_on, outs)
+
+
+def test_spec_serving_on_card_agrees_with_cpu_and_spec_off(cuda_device):
+    """Smoke-size glm4-9b (float32) with spec_tokens=3 and the prefix cache,
+    float and int8 pools: on the card, spec on and spec off give the same
+    greedy tokens up to near-ties, and the card agrees with the CPU."""
+    import dataclasses
+
+    from repro_torch import bridge, configs
+    from repro_torch.models import registry
+    from repro_torch.serve import EngineConfig, LLMEngine
+
+    for quant_on in (False, True):
+        cfg = dataclasses.replace(configs.smoke_config("glm4-9b"),
+                                  dtype="float32", serve_quant=quant_on)
+        arch = registry.build(cfg)
+        npp = bridge.numpy_params(arch.schema(), seed=0)
+        rng = np.random.default_rng(1)
+        shared = rng.integers(0, cfg.vocab, 19)
+        prompts = [np.concatenate([shared, np.tile(
+            rng.integers(0, cfg.vocab, 3), 8)[:int(rng.integers(4, 20))]])
+            for _ in range(6)]
+        outs = {}
+        for device, k in (("cuda", 3), ("cuda", 0), ("cpu", 3)):
+            eng = LLMEngine(arch, bridge.params_from_numpy(npp, device),
+                            EngineConfig(slots=4, max_len=64, admit_window=2,
+                                         block_len=8, spec_tokens=k,
+                                         prefix_cache=True), device=device)
+            hs = [eng.add_request(p, max_new_tokens=12) for p in prompts]
+            eng.run_until_drained()
+            outs[device, k] = [eng.request(h).output for h in hs]
+        for other in (("cuda", 0), ("cpu", 3)):
+            same = sum(a == b for x, y in zip(outs["cuda", 3], outs[other])
+                       for a, b in zip(x, y))
+            assert same >= 0.9 * 72, (quant_on, other, outs)

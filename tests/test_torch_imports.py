@@ -29,9 +29,12 @@ def _all_modules():
 
 def test_port_imports_neither_jax_nor_the_reference_package():
     mods = _all_modules()
-    assert {"repro_torch.serve.api", "repro_torch.kernels.build",
+    assert {"repro_torch.serve.api", "repro_torch.serve.spec",
+            "repro_torch.serve.backends", "repro_torch.kernels.build",
             "repro_torch.kernels.int8_gemm.ops",
             "repro_torch.kernels.paged_attention.ops",
+            "repro_torch.kernels.paged_attention.ref",
+            "repro_torch.models.cache", "repro_torch.models.transformer",
             "repro_torch.bridge"} <= set(mods)
     script = (
         "import importlib, sys\n"
@@ -63,7 +66,8 @@ def test_kernels_are_registered_with_their_tpu_counterparts():
 
     by_name = {k.name: k for k in all_kernels()}
     assert set(by_name) == {"int8_gemm", "paged_attention",
-                            "paged_attention_int8"}
+                            "paged_attention_int8", "paged_attention_verify",
+                            "paged_attention_verify_int8"}
     for k in by_name.values():
         assert k.library.source.exists()
         assert k.replaces.startswith("src/repro/kernels/")

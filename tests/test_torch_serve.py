@@ -3,15 +3,15 @@
 Greedy token identity of the port's ``LLMEngine`` with the JAX
 ``LLMEngine(backend="paged")`` on the dense smoke configs (float32), under
 the ``bounded`` scheduler (with a forced preemption) and ``fcfs``; model
-level ``paged_prefill`` / ``paged_decode_step`` logits at allclose; the
-sampling contract; and the settings the port refuses by name.
+level ``paged_prefill`` / ``paged_decode_step`` / ``paged_verify_step``
+(the speculative verify pass) logits at allclose; the sampling contract; and the settings the port refuses by name.
 
-Both engines get the same numpy weights (``repro_torch.bridge``). The JAX
-engine's decode is made to finish before the host touches its block table
-again (``sync_reference_decode``): the reference uploads the host-owned
-table per dispatch and rewrites table rows right after dispatching, and
-with CPU async dispatch that race makes its streams vary run to run (see
-ROADMAP Queue C).
+Both engines get the same numpy weights (``repro_torch.bridge``). Every
+JAX backend dispatch that reads host state is made to finish before the
+host touches its block table again (``sync_reference_decode``): the
+reference uploads the host-owned table per dispatch and rewrites table rows
+right after dispatching, and with CPU async dispatch that race makes its
+streams vary run to run (see ROADMAP Queue C).
 """
 
 import dataclasses
@@ -52,16 +52,27 @@ def setup_pair(name, quant):
 
 
 def sync_reference_decode(engine):
-    """Wait for the reference's decode dispatch before returning, so its
-    host-side table writes cannot race the dispatch still reading them."""
-    orig = engine.backend.decode
+    """Make every dispatch of the reference's paged backend that reads the
+    host block table finish before it returns — ``decode``, ``verify``
+    (which uploads the table as decode does, and whose ``commit`` rewrites
+    it right after), ``prefill_chunk`` (the body of ``prefill``) and the
+    copy-on-write block copy — so host-side table writes cannot race a
+    dispatch still reading them."""
+    backend = engine.backend
 
-    def decode(*args, **kw):
-        tok = orig(*args, **kw)
-        jax.block_until_ready(tok)
-        return tok
+    def blocking(fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            jax.block_until_ready((out, backend.cache))
+            return out
+        return call
 
-    engine.backend.decode = decode
+    for name in ("decode", "verify", "prefill_chunk"):
+        if hasattr(backend, name):
+            setattr(backend, name, blocking(getattr(backend, name)))
+    copy = getattr(backend, "_copy_block_fn", None)
+    if copy is not None:
+        backend._copy_block_fn = lambda *a: jax.block_until_ready(copy(*a))
     return engine
 
 
@@ -152,6 +163,49 @@ def test_paged_prefill_and_decode_logits_allclose(quant):
                                   np.asarray(jcache["len"]))
 
 
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_verify_step_logits_allclose(quant):
+    """Two prefilled slots, then two verify steps of Q = 3 at host-owned
+    lengths (one slot crossing a block boundary, one running past its
+    table into trash); logits at allclose (f32 reordering)."""
+    jarch, jparams, tarch, tparams = setup_pair("glm4-9b", quant)
+    cfg = tarch.cfg
+    blk, nblocks, max_len = 8, 20, 32
+    jcache = jarch.init_paged_cache(2, JLayout(blk, nblocks, max_len))
+    tcache = tarch.init_paged_cache(2, TLayout(blk, nblocks, max_len),
+                                    device="cpu")
+    jq = jarch.quantize_params(jparams) if quant else None
+    tq = tarch.quantize_params(tparams) if quant else None
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (7, 27)]
+    ids = [np.int32([3]), np.int32([7, 2, 9, 4])]
+    for slot, (p, bid) in enumerate(zip(prompts, ids)):
+        _, jcache = jax.jit(jarch.paged_prefill)(
+            jparams, jnp.asarray(p[None]), jcache, slot, jnp.asarray(bid))
+        tarch.paged_prefill(tparams, torch.from_numpy(p[None]), tcache, slot,
+                            torch.from_numpy(bid))
+    table = np.zeros((2, max_len // blk), np.int32)
+    table[0, :2] = [3, 11]
+    table[1, :4] = ids[1]
+    jver = jax.jit(functools.partial(
+        jarch.paged_verify_step,
+        attn_backend="interpret" if quant else "xla"))
+    lens = np.int32([7, 27])
+    for step in range(2):
+        toks = rng.integers(0, cfg.vocab, (2, 3)).astype(np.int32)
+        jlog, jcache = jver(jparams, dict(jcache, len=jnp.asarray(lens)),
+                            jnp.asarray(toks), jnp.asarray(table), qparams=jq)
+        tcache["len"] = torch.from_numpy(lens)
+        tlog, tcache = tarch.paged_verify_step(
+            tparams, tcache, torch.from_numpy(toks), torch.from_numpy(table),
+            qparams=tq)
+        assert tuple(tlog.shape) == (2, 3, cfg.vocab)
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog),
+                                   atol=1e-4, rtol=1e-4, err_msg=str(step))
+        lens = lens + np.int32([2, 1])
+
+
 def test_sampling_is_a_function_of_seed_rid_and_index():
     """A sampled request draws the same tokens alone as in a mixed batch
     (greedy rows beside it unchanged), keyed by (seed, rid, output index)."""
@@ -178,9 +232,11 @@ def test_sampling_is_a_function_of_seed_rid_and_index():
 
 
 @pytest.mark.parametrize("setting,kw", [
-    ("prefix_cache", dict(prefix_cache=True)),
+    ("backend", dict(backend="slot")),
     ("prefill_chunk_tokens", dict(prefill_chunk_tokens=16)),
-    ("spec_tokens", dict(spec_tokens=2)),
+    # the ported features do not mask the refusal of an unported one
+    ("prefill_chunk_tokens", dict(prefill_chunk_tokens=32, spec_tokens=2,
+                                  prefix_cache=True)),
     ("backend", dict(backend="arena")),
 ])
 def test_unported_settings_raise_by_name(setting, kw):
