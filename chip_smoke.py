@@ -12,9 +12,11 @@ Phases (each exits non-zero on failure; none is caught):
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes glm4-9b's serving path gives it — the int8 GEMM bit-exact (at
    decode's M = 8 and verify's M = 40), paged decode and verify attention
-   allclose, verify at Q = 1 bit-equal to decode — and time kernel, plain
-   version, a library yardstick (timed here, never called by the port) and
-   the card's bound;
+   allclose, verify at Q = 1 bit-equal to decode — and the SSD chunked scan
+   at mamba2-2.7b's widths (S = 1, 5, 129, 512, 2048, with and without the
+   state, and a G = 2 case) allclose; time kernel, plain version, a library
+   yardstick where one PyTorch call computes the same function (timed here,
+   never called by the port) and the card's bound;
 3. serve full-width glm4-9b (random weights from a seeded generator, depth
    as published) through ``LLMEngine(backend="paged")`` with bf16 pools and
    with int8 pools: plain decode, then speculative decoding
@@ -23,7 +25,12 @@ Phases (each exits non-zero on failure; none is caught):
    launch count set to 0 just before and read just after each run; check
    every request finishes with its token count, the logits are finite, the
    kernels' results agree with the CPU's plain versions on a small input,
-   and spec on gives spec off's greedy tokens on a small input.
+   and spec on gives spec off's greedy tokens on a small input;
+4. serve full-width mamba2-2.7b (random bf16 weights, 64 layers) through
+   ``LLMEngine(backend="arena")``, its launch counts set to 0 just before
+   and read just after; check every request finishes with its token count,
+   one more decode step's logits are finite, and on a small input the card
+   agrees with the CPU and the slot backend with the arena.
 
 The last lines of stdout are a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -388,6 +395,79 @@ def check_verify(torch, cfg, slots, blk, lens, qlen, flush, *, int8):
               f"Q={qlen} blk={blk} lens={lens}")
 
 
+def check_ssd_scan(torch, cfg, lengths, main_len):
+    """Kernel B8 at mamba2-2.7b's widths (one prompt: B = 1, H = 80, P = 64,
+    N = 128, G = 1) against ``ssd_scan_chunked_ref`` over the zero-padded
+    sequence: y and the final state allclose (rtol 1e-4, atol 1e-4·max|·|;
+    float32, only the order of additions differs), plus a G = 2 case."""
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import (
+        pad_to_chunks, ssd_scan_chunked_ref,
+    )
+
+    dev = torch.device("cuda")
+    d_inner = cfg.expand * cfg.d_model
+    h, p, n = d_inner // cfg.ssm_headdim, cfg.ssm_headdim, cfg.ssm_state
+
+    def case(s, g=cfg.ssm_ngroups, heads=h):
+        gen = torch.Generator(device=dev).manual_seed(SEED + s + g)
+        # Δ·A as the model makes it: softplus(dt) · -exp(a_log), a_log = 1
+        dta = -torch.rand((1, heads, s), generator=gen, device=dev) * 2.0
+        x = torch.randn((1, heads, s, p), generator=gen, device=dev)
+        bm = torch.randn((1, g, s, n), generator=gen, device=dev) * 0.3
+        cm = torch.randn((1, g, s, n), generator=gen, device=dev) * 0.3
+        return dta, x, bm, cm
+
+    def plain(args, s):
+        chunk = min(128, s)
+        y, st = ssd_scan_chunked_ref(*pad_to_chunks(*args, chunk),
+                                     chunk=chunk, return_state=True)
+        return y[:, :, :s], st
+
+    errs = {}
+    for s, g in [(s, cfg.ssm_ngroups) for s in lengths] + [(300, 2)]:
+        args = case(s, g, heads=h if g == cfg.ssm_ngroups else 8)
+        y, st = ops.ssd_scan_cuda(*args, chunk=min(128, s), return_state=True)
+        y_only = ops.ssd_scan_cuda(*args, chunk=min(128, s))
+        want_y, want_st = plain(args, s)
+        torch.cuda.synchronize()
+        for got, want in ((y, want_y), (st, want_st)):
+            torch.testing.assert_close(
+                got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+        if not torch.equal(y, y_only):
+            raise AssertionError(f"ssd_scan S={s}: y differs without state")
+        errs[(s, g)] = max((y - want_y).abs().max().item(),
+                           (st - want_st).abs().max().item())
+    args = case(main_len)
+    kernel_ms = timed(torch, lambda: ops.ssd_scan_cuda(
+        *args, chunk=128, return_state=True), 50)
+    plain_ms = timed(torch, lambda: plain(args, main_len), 20)
+    per_len = {s: timed(torch, lambda a=case(s): ops.ssd_scan_cuda(
+        *a, chunk=min(128, s), return_state=True), 20) for s in lengths}
+    # bytes: dta, x, B, C in once; y and the state out once. Operations
+    # the function needs per chunk of L rows: C·Bᵀ over τ ≤ t once per
+    # group (L·(L+1)·N), and per head scores·x over τ ≤ t (L·(L+1)·P),
+    # C·state and Bᵀ·x (2·L·N·P each)
+    g = cfg.ssm_ngroups
+    nbytes = 4 * (h * main_len * (1 + 2 * p) + 2 * g * main_len * n
+                  + h * n * p)
+    full, tail = divmod(main_len, 128)
+    ops_n = sum(g * rows * (rows + 1) * n
+                + h * (rows * (rows + 1) * p + 4 * rows * n * p)
+                for rows in [128] * full + ([tail] if tail else []))
+    b_ms, b_by = bound(nbytes, ops_n, "f32")
+    return dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        replaces=ops.KERNEL.replaces.split()[0],
+        max_abs_err=max(errs.values()), ms=kernel_ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"B=1 H={h} P={p} N={n} G={cfg.ssm_ngroups} S={main_len} "
+              f"chunk=128, state out",
+        errs={f"S={s},G={g}": e for (s, g), e in errs.items()},
+        per_len_ms=per_len)
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the port's main path at full width
 # ---------------------------------------------------------------------------
@@ -533,6 +613,126 @@ def small_input_spec_agreement(torch, quant):
     return same, total
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: the Mamba-2 family on the arena backend
+# ---------------------------------------------------------------------------
+
+
+def serve_arena(torch, arch, params, prompts, slots, max_new):
+    """Full-width serving through ``LLMEngine(backend="arena")`` with the
+    launch counts set to 0 just before and read just after."""
+    from repro_torch.kernels.build import all_kernels
+    from repro_torch.serve import EngineConfig, LLMEngine
+
+    eng = LLMEngine(arch, params, EngineConfig(
+        backend="arena", slots=slots, max_len=512 + max_new, admit_window=2,
+        scheduler="bounded"))
+    for k in all_kernels():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [eng.add_request(p, max_new_tokens=max_new) for p in prompts]
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in all_kernels()}
+    reqs = [eng.request(h) for h in handles]
+    for r in reqs:
+        if len(r.output) != max_new or r.finish_reason != "length":
+            raise AssertionError(
+                f"request {r.rid}: {len(r.output)} tokens, {r.finish_reason}")
+    logits, _ = arch.decode_step(params, eng.cache, eng.backend.last_tok)
+    if tuple(logits.shape) != (slots, arch.cfg.vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"logits {tuple(logits.shape)} not finite")
+    m = eng.metrics()
+    preemptions = sum(r.preemptions for r in reqs)
+    return dict(cache=eng.cache, last_tok=eng.backend.last_tok,
+        tokens_per_s=sum(len(r.output) for r in reqs) / wall,
+        decode_ms_per_iter_p50=m["iter_wall_p50_ms"],
+        iterations=m["iterations"], wall_s=wall, preemptions=preemptions,
+        prefills=len(reqs) + preemptions,
+        prompt_tokens=int(sum(len(p) for p in prompts)),
+        state_bytes_per_slot=sum(
+            v[:, :1].numel() * v.element_size()
+            for k, v in eng.cache.items() if k != "len"),
+        launches=counts)
+
+
+def profile_decode(torch, arch, params, cache, tokens):
+    """One arena decode step: host wall (synchronized, unprofiled) and the
+    device's kernel time from ``torch.profiler``, with the ops that take the
+    most device time. Device time 0 means the profiler saw no device
+    activity (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        arch.decode_step(params, cache, tokens)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        arch.decode_step(params, cache, tokens)
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # kernels are the device-side entries; each host op's self device time
+    # is the time of the kernels it launched (the same kernels again)
+    kernels = [e for e in avgs if str(e.device_type).endswith("CUDA")]
+    ops = [e for e in avgs if not str(e.device_type).endswith("CUDA")]
+    top = sorted(ops, key=dev_us, reverse=True)[:8]
+    return dict(wall_ms=sorted(walls)[1],
+                device_ms=sum(dev_us(e) for e in kernels) / 1e3,
+                kernel_launches=sum(e.count for e in kernels),
+                top={e.key: round(dev_us(e) / 1e3, 4) for e in top})
+
+
+def small_input_mamba(torch):
+    """mamba2-2.7b-smoke in float32 through the arena on the card (kernel
+    B8) and on the CPU (plain versions): ≥ 90 % equal greedy tokens; on the
+    card, the slot backend gives the arena's tokens."""
+    from repro_torch import bridge, configs
+    from repro_torch.models import registry
+    from repro_torch.serve import EngineConfig, LLMEngine
+
+    import numpy as np
+
+    cfg = dataclasses.replace(configs.smoke_config("mamba2-2.7b"),
+                              dtype="float32")
+    arch = registry.build(cfg)
+    npp = bridge.numpy_params(arch.schema(), seed=SEED)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(3, 40))
+                            ).astype(np.int32) for _ in range(6)]
+    outs = {}
+    for device, backend in (("cuda", "arena"), ("cuda", "slot"),
+                            ("cpu", "arena")):
+        eng = LLMEngine(arch, bridge.params_from_numpy(npp, device),
+                        EngineConfig(backend=backend, slots=4, max_len=64,
+                                     admit_window=2), device=device)
+        hs = [eng.add_request(p, max_new_tokens=12) for p in prompts]
+        eng.run_until_drained()
+        outs[device, backend] = [eng.request(h).output for h in hs]
+    if outs["cuda", "slot"] != outs["cuda", "arena"]:
+        raise AssertionError(f"on the card, slot vs arena greedy tokens "
+                             f"differ: {outs}")
+    same = sum(a == b for x, y in zip(outs["cuda", "arena"],
+                                      outs["cpu", "arena"])
+               for a, b in zip(x, y))
+    total = sum(len(x) for x in outs["cpu", "arena"])
+    if same / total < 0.9:
+        raise AssertionError(f"mamba card vs CPU greedy tokens: "
+                             f"{same}/{total} agree")
+    return same, total
+
+
 def main() -> None:
     try:
         import torch
@@ -567,6 +767,7 @@ def main() -> None:
     lens = [0, 1, 17, 64, 130, 255, 400, 544]
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     flush = scratch.zero_
+    mcfg = configs.get_config("mamba2-2.7b")
     entries = [check_int8_gemm(torch, cfg, slots, slots * (spec_k + 1)),
                check_attention(torch, cfg, slots, blk, lens, flush,
                                int8=False),
@@ -575,13 +776,21 @@ def main() -> None:
                check_verify(torch, cfg, slots, blk, lens, spec_k + 1, flush,
                             int8=False),
                check_verify(torch, cfg, slots, blk, lens, spec_k + 1, flush,
-                            int8=True)]
+                            int8=True),
+               check_ssd_scan(torch, mcfg, [1, 5, 129, 512, 2048], 512)]
     del scratch
     for e in entries:
+        lib = ("null" if e["library_ms"] is None
+               else f"{e['library_ms']:.4f}")
         print(f"kernel {e['name']}: kernel_ms={e['ms']:.4f} "
               f"plain_ms={e['plain_ms']:.4f} bound_ms={e['bound_ms']:.4f} "
-              f"({e['bound_by']}) library_ms={e['library_ms']:.4f} "
+              f"({e['bound_by']}) library_ms={lib} "
               f"max_abs_err={e['max_abs_err']} [{e['shape']}]", flush=True)
+    ssd = entries[-1]
+    print(f"kernel ssd_scan max |err| per case: {json.dumps(ssd['errs'])}; "
+          f"kernel ms per S (with state): "
+          f"{json.dumps({s: round(t, 4) for s, t in ssd['per_len_ms'].items()})}",
+          flush=True)
     gemm = entries[0]
     print(f"kernel int8_gemm at the verify pass's M={gemm['verify_rows']}: "
           f"kernel_ms={gemm['verify_ms']:.4f} "
@@ -655,6 +864,47 @@ def main() -> None:
                    "paged_attention_verify_int8":
                        runs["int8 spec+prefix"]["launches"][
                            "paged_attention_verify_int8"]}
+    del params
+    torch.cuda.empty_cache()
+
+    # -- phase 4: full-width mamba2-2.7b through LLMEngine(backend="arena") -
+    same_m, total_m = small_input_mamba(torch)
+    print(f"small input mamba2-2.7b-smoke: card vs CPU greedy tokens "
+          f"{same_m}/{total_m}; on the card slot == arena", flush=True)
+    march = registry.build(mcfg)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    mparams = schema.init_params(march.schema(), gen, "cuda",
+                                 dtype=mcfg.compute_dtype)
+    torch.cuda.synchronize()
+    print(f"mamba2-2.7b params: "
+          f"{schema.param_count(march.schema()) / 1e9:.2f} B "
+          f"({time.perf_counter() - t0:.1f} s to draw on the card)", flush=True)
+    r = serve_arena(torch, march, mparams,
+                    random_prompts(mcfg.vocab, n_requests, seed=6), slots,
+                    max_new)
+    print(f"serve mamba2-2.7b arena: {n_requests} requests x {max_new} tokens "
+          f"({r['prompt_tokens']} prompt tokens), "
+          f"tokens/s={r['tokens_per_s']:.2f} iter_ms(p50)="
+          f"{r['decode_ms_per_iter_p50']:.2f} iterations={r['iterations']:.0f} "
+          f"preemptions={r['preemptions']} prefills={r['prefills']} "
+          f"state_bytes_per_slot={r['state_bytes_per_slot']} "
+          f"kernels={json.dumps(r['launches'])}", flush=True)
+    if r["launches"]["ssd_scan"] != mcfg.n_layers * r["prefills"]:
+        raise AssertionError(
+            f"ssd_scan launched {r['launches']['ssd_scan']} times for "
+            f"{r['prefills']} admission prefills of {mcfg.n_layers} layers")
+    main_counts["ssd_scan"] = r["launches"]["ssd_scan"]
+    prof = profile_decode(torch, march, mparams, r["cache"], r["last_tok"])
+    busy = (f"{prof['device_ms'] / prof['wall_ms']:.4f}" if prof["device_ms"]
+            else "not measured")
+    print(f"mamba2-2.7b arena decode step ({slots} slots): host wall "
+          f"{prof['wall_ms']:.2f} ms, device kernel time "
+          f"{prof['device_ms']:.2f} ms in {prof['kernel_launches']} kernels "
+          f"(torch.profiler), device busy share {busy}; device ms by op: "
+          f"{json.dumps(prof['top'])}", flush=True)
+    del mparams, r
+
     for e in entries:
         e["launches"] = main_counts[e["name"]]
     if {e["name"] for e in entries} != {k.name for k in all_kernels()}:

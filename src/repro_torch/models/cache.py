@@ -1,10 +1,11 @@
-"""Paged KV block pool: layout, host-side allocator and device writes.
+"""Serving caches: the dense arena's slot operations, and the paged KV
+block pool (layout, host-side allocator and device writes).
 
-Port of the paged half of ``repro.models.cache``. The allocator and the
-content keys are numpy/hashlib host code and are carried over verbatim; the
-device helpers write into the pool **in place** (the JAX functions return
-updated arrays; the port mutates the pool tensors it is given, which saves
-a pool copy per write).
+Port of ``repro.models.cache``. The allocator and the content keys are
+numpy/hashlib host code and are carried over verbatim; the device helpers
+write into the cache **in place** (the JAX functions return updated arrays;
+the port mutates the tensors it is given, which saves a cache copy per
+write).
 """
 
 from __future__ import annotations
@@ -18,6 +19,33 @@ import numpy as np
 import torch
 
 from repro_torch.core.quant import recip32
+
+
+# ---------------------------------------------------------------------------
+# Dense-arena slot operations. Every family's ``init_cache`` produces a dict
+# whose rank-1 leaves are per-row bookkeeping (``len``, the per-slot position
+# vector) and whose higher-rank leaves carry the batch (slot) dimension at
+# axis 1 (axis 0 is the stacked-layer dimension).
+# ---------------------------------------------------------------------------
+
+
+def batch_axis(leaf: torch.Tensor) -> int:
+    """Axis carrying the slot/batch dimension under the cache convention."""
+    return 0 if leaf.dim() == 1 else 1
+
+
+def cache_insert(batched, single, slot: int):
+    """Overwrite slot ``slot`` of a batched cache with a batch-1 cache of
+    the same family and shapes (the whole slot row, position counter
+    included), in place; returns ``batched``."""
+    for name, b in batched.items():
+        s = single[name]
+        want = b.shape[:batch_axis(b)] + (1,) + b.shape[batch_axis(b) + 1:]
+        if s.shape != want:
+            raise ValueError(f"cache_insert: {name} {tuple(s.shape)} does "
+                             f"not fit a slot of {tuple(b.shape)}")
+        b.narrow(batch_axis(b), slot, 1).copy_(s)
+    return batched
 
 
 def bucket_for(n: int, min_bucket: int = 8, cap: int | None = None) -> int:

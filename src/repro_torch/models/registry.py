@@ -1,8 +1,11 @@
 """Architecture registry (port of ``repro.models.registry``).
 
-This slice ports the dense transformer family, which also serves the
-``vlm-dense`` configs (frontend stubbed, embeddings in). Other families
-raise ``NotImplementedError`` naming the family.
+Ported families: the dense transformer (which also serves the ``vlm-dense``
+configs, frontend stubbed, embeddings in) on its paged serving path, and
+the Mamba-2 ``ssm`` family on the dense-arena entry points (``forward``,
+``prefill``, ``decode_step``, ``init_cache``). Other families raise
+``NotImplementedError`` naming the family. Entry points a family module
+does not define stay ``None``, as in the reference.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from repro_torch.models.config import ModelConfig
 _FAMILY_MODULES = {
     "dense": "repro_torch.models.transformer",
     "vlm-dense": "repro_torch.models.transformer",  # frontend stubbed
+    "ssm": "repro_torch.models.ssm",
 }
 
 
@@ -29,14 +33,22 @@ def get_family(family: str):
 
 @dataclasses.dataclass(frozen=True)
 class Arch:
-    """Bound architecture: config + the family's paged serving entry points."""
+    """Bound architecture: config + the family's entry points."""
 
     cfg: ModelConfig
     schema: Callable
+    # dense-arena entry points (None where the port has not ported them:
+    # the dense family's non-paged paths)
+    forward: Optional[Callable] = None
+    prefill: Optional[Callable] = None
+    decode_step: Optional[Callable] = None
+    init_cache: Optional[Callable] = None
     quantize_params: Optional[Callable] = None
     # prefill accepts right-padded prompts + ``true_len`` (bucketed serving
     # admission); exact only for causal-attention families
     supports_padded_prefill: bool = False
+    # paged block-pool KV cache entry points (attention-cache families only;
+    # recurrent state has no growing KV to page)
     init_paged_cache: Optional[Callable] = None
     paged_decode_step: Optional[Callable] = None
     paged_prefill: Optional[Callable] = None
@@ -64,8 +76,27 @@ class Arch:
         return self.supports_paged and self.paged_int8_kv
 
     @property
+    def serve_backends(self) -> tuple:
+        """Execution backends (``repro_torch.serve.backends``) this arch
+        serves on. ``slot`` and ``arena`` need the dense-arena entry points
+        (every family has them in the reference; in the port the dense
+        family's are not ported yet), ``paged`` the paged decode and
+        prefill entry points (recurrent state has no KV cache to page)."""
+        out = []
+        if self.decode_step is not None and self.prefill is not None:
+            out += ["slot", "arena"]
+        if self.supports_paged and self.supports_paged_prefill:
+            out.append("paged")
+        return tuple(out)
+
+    @property
     def name(self) -> str:
         return self.cfg.name
+
+
+def _bind(mod, name: str, fn):
+    """``fn`` when the family module defines ``name``, else None."""
+    return fn if hasattr(mod, name) else None
 
 
 def build(cfg: ModelConfig) -> Arch:
@@ -73,18 +104,34 @@ def build(cfg: ModelConfig) -> Arch:
     return Arch(
         cfg=cfg,
         schema=lambda: mod.schema(cfg),
-        quantize_params=lambda params: mod.quantize_params(params, cfg),
-        supports_padded_prefill=mod.SUPPORTS_PADDED_PREFILL,
-        paged_int8_kv=mod.PAGED_INT8_KV,
-        init_paged_cache=lambda slots, layout, **kw: mod.init_paged_cache(
-            cfg, slots, layout, **kw),
-        paged_decode_step=lambda params, cache, tokens, table, **kw:
-            mod.paged_decode_step(params, cache, tokens, cfg, table, **kw),
-        paged_prefill=lambda params, tokens, cache, slot, block_ids, **kw:
-            mod.paged_prefill(params, tokens, cfg, cache, slot, block_ids,
-                              **kw),
-        paged_verify_step=lambda params, cache, tokens, table, **kw:
-            mod.paged_verify_step(params, cache, tokens, cfg, table, **kw),
+        forward=_bind(mod, "forward", lambda params, tokens, **kw:
+                      mod.forward(params, tokens, cfg, **kw)),
+        prefill=_bind(mod, "prefill", lambda params, tokens, max_len, **kw:
+                      mod.prefill(params, tokens, cfg, max_len, **kw)),
+        decode_step=_bind(mod, "decode_step",
+                          lambda params, cache, tokens, **kw:
+                          mod.decode_step(params, cache, tokens, cfg, **kw)),
+        init_cache=_bind(mod, "init_cache", lambda batch, max_len, **kw:
+                         mod.init_cache(cfg, batch, max_len, **kw)),
+        quantize_params=_bind(mod, "quantize_params", lambda params:
+                              mod.quantize_params(params, cfg)),
+        supports_padded_prefill=getattr(mod, "SUPPORTS_PADDED_PREFILL", False),
+        paged_int8_kv=getattr(mod, "PAGED_INT8_KV", False),
+        init_paged_cache=_bind(mod, "init_paged_cache",
+                               lambda slots, layout, **kw:
+                               mod.init_paged_cache(cfg, slots, layout, **kw)),
+        paged_decode_step=_bind(mod, "paged_decode_step",
+                                lambda params, cache, tokens, table, **kw:
+                                mod.paged_decode_step(params, cache, tokens,
+                                                      cfg, table, **kw)),
+        paged_prefill=_bind(mod, "paged_prefill",
+                            lambda params, tokens, cache, slot, block_ids, **kw:
+                            mod.paged_prefill(params, tokens, cfg, cache,
+                                              slot, block_ids, **kw)),
+        paged_verify_step=_bind(mod, "paged_verify_step",
+                                lambda params, cache, tokens, table, **kw:
+                                mod.paged_verify_step(params, cache, tokens,
+                                                      cfg, table, **kw)),
     )
 
 

@@ -9,11 +9,14 @@
         print(out.token, out.finish_reason)
 
 The engine owns queue + slots + lifecycle (``serve.request``), delegates
-when/who to admit or preempt to a ``Scheduler`` and where KV lives / how
-tokens are computed to the paged backend. One iteration (``step()``) is
-one batched decode pass, at most ``admit_batch`` admission prefills (plus
-one forced admission), and a single device→host fetch of the sampled
-tokens; stop-sequence / EOS / length finishes are host-side checks on it.
+when/who to admit or preempt to a ``Scheduler`` and where the decode state
+lives / how tokens are computed to a backend (``slot``, ``arena`` or
+``paged``; ``serve.backends``). One iteration (``step()``) is one batched
+decode pass, at most ``admit_batch`` admission prefills (plus one forced
+admission), and a single device→host fetch of the sampled tokens;
+stop-sequence / EOS / length finishes are host-side checks on it. The
+``slot`` backend instead decodes slot by slot, fetching each token as it
+goes, and admits one request per iteration.
 With ``spec_tokens = k > 0`` the decode pass becomes a verify pass over
 each slot's last token plus up to ``k`` n-gram drafts (``serve.spec``);
 greedy acceptance commits 1..k+1 tokens per slot per iteration, the same
@@ -46,6 +49,23 @@ from repro_torch.serve.spec import accept_tokens, ngram_propose
 Handle = int
 
 
+def _validate(ec: EngineConfig) -> None:
+    """The reference's cross-field checks on the chosen backend. (The
+    reference validates nothing else here: ``prefix_cache`` is read by the
+    paged backend only, and the arena ignores it.)"""
+    if ec.prefill_chunk_tokens is not None and ec.backend != "paged":
+        raise ValueError(
+            f"prefill_chunk_tokens={ec.prefill_chunk_tokens} applies "
+            f"to the paged backend only — chunked prefill resumes at "
+            f"block boundaries of the shared pool, which the dense "
+            f"arenas don't have")
+    if ec.spec_tokens > 0 and ec.backend != "paged":
+        raise ValueError(
+            f"spec_tokens={ec.spec_tokens} applies to the paged "
+            f"backend only — draft verification writes through the "
+            f"block pools and rollback rides the paged allocator")
+
+
 def _refuse_unported(ec: EngineConfig, mesh) -> None:
     """Settings the port does not implement yet fail here, by name."""
     unported = []
@@ -53,8 +73,6 @@ def _refuse_unported(ec: EngineConfig, mesh) -> None:
         unported.append(f"prefill_chunk_tokens={ec.prefill_chunk_tokens}")
     if mesh is not None:
         unported.append("mesh")
-    if ec.backend != "paged":
-        unported.append(f"backend={ec.backend!r}")
     if unported:
         raise NotImplementedError(
             f"not ported to repro_torch yet: {', '.join(unported)}")
@@ -72,6 +90,7 @@ class LLMEngine:
         ``config``. ``device`` (default ``cuda``) is where the backend
         keeps its pools; ``params`` must already live there."""
         ec = config if config is not None else EngineConfig()
+        _validate(ec)
         _refuse_unported(ec, mesh)
         self.arch = arch
         self.ec = ec
@@ -285,7 +304,10 @@ class LLMEngine:
     def _dispatch_admission(self, req: Request, slot: int):
         req.state = RequestState.PREFILL
         req.waiting_iters = 0
-        samp, any_sampling = self._admission_vectors(req)
+        if self.backend.vectorized:
+            samp, any_sampling = self._admission_vectors(req)
+        else:
+            samp, any_sampling = None, False
         tok = self.backend.prefill(req, slot, samp, any_sampling)
         self.slots[slot] = req
         return tok
@@ -315,10 +337,12 @@ class LLMEngine:
             samp, any_sampling = self._sampling_vectors(self._spec + 1)
             dec_tok = self.backend.verify(active, self.slots, spec_mat, samp,
                                           any_sampling)
-        elif active:
+        elif active and self.backend.vectorized:
             samp, any_sampling = self._sampling_vectors()
             dec_tok = self.backend.decode(active, self.slots, samp,
                                           any_sampling)
+        elif active:
+            dec_tok = self.backend.decode(active, self.slots, None, False)
 
         admitted: List[tuple] = []      # (request, slot, first token)
         granted: List[Request] = []     # dispatched admissions (for credit)
@@ -435,16 +459,24 @@ class LLMEngine:
         is scanned for finishes — a stop/EOS match truncates the accepted
         tail behind it."""
         finished: List[Request] = []
-        parts = []
-        if dec_tok is not None:
-            parts.append(dec_tok.reshape(-1))
-        parts += [tok.reshape(1) for _, _, tok in admitted]
-        if not parts:
-            return finished
-        host = torch.cat(parts).tolist()      # the iteration's one fetch
-        self.backend.transfers += 1
-        n_dec = 0 if dec_tok is None else dec_tok.numel()
-        dec_vals, adm_vals = host[:n_dec], host[n_dec:]
+        if self.backend.vectorized:
+            parts = []
+            if dec_tok is not None:
+                parts.append(dec_tok.reshape(-1))
+            parts += [tok.reshape(1) for _, _, tok in admitted]
+            if not parts:
+                return finished
+            host = torch.cat(parts).tolist()      # the iteration's one fetch
+            self.backend.transfers += 1
+            n_dec = 0 if dec_tok is None else dec_tok.numel()
+            dec_vals, adm_vals = host[:n_dec], host[n_dec:]
+        else:
+            # the slot backend returned host ints ({slot: token} for the
+            # decode) and counted its own transfers
+            if dec_tok is None and not admitted:
+                return finished
+            dec_vals = dec_tok
+            adm_vals = [tok for _, _, tok in admitted]
         if spec_drafts is not None:
             q = self._spec + 1
             dec_vals = [dec_vals[i * q:(i + 1) * q]

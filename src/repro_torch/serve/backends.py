@@ -1,17 +1,29 @@
-"""The paged execution backend behind the ``CacheBackend`` protocol.
+"""Execution backends behind the ``CacheBackend`` protocol.
 
-Port of the paged part of ``repro.serve.backends``: continuous batching
-over a shared pool of fixed-size KV blocks (``models.cache.PagedLayout``)
-with host-owned block tables, paged prefill straight into pool blocks, and
-int8 block storage (+ per-block scales) for quantized archs. One decode
-pass over all slots per iteration, admission prefills, and the engine's
-single device→host token fetch per iteration.
+Port of ``repro.serve.backends``. A backend owns where the decode state
+lives and how a token gets computed; queues, lifecycle and policy are the
+engine's (``serve.api``) and the scheduler's. Three implementations,
+selected by ``EngineConfig.backend``:
 
-Prefix caching (content-addressed block sharing with copy-on-write and
-suffix-resume prefill) and speculative decoding (small-q verify, commit
-and block rollback) run on it. Not ported yet (refused at construction with
-``NotImplementedError``): the ``slot``/``arena`` backends, ring blocks for
-sliding-window layers, chunked prefill and mesh sharding.
+  * ``slot``  — :class:`SlotBackend`: the sequential per-slot reference.
+    One batch-1 decode per slot with a host argmax per token; greedy-only.
+  * ``arena`` — :class:`ArenaBackend`: one batched cache with the slot
+    dimension (``arch.init_cache``), one batched decode over every slot per
+    iteration, exact-length admission prefill spliced into the slot with
+    ``models.cache.cache_insert``, and the engine's single device→host token
+    fetch per iteration.
+  * ``paged`` — :class:`PagedBackend`: continuous batching over a shared
+    pool of fixed-size KV blocks (``models.cache.PagedLayout``) with
+    host-owned block tables, paged prefill straight into pool blocks, int8
+    block storage for quantized archs, prefix caching (content-addressed
+    block sharing with copy-on-write and suffix-resume prefill) and
+    speculative decoding (small-q verify, commit and block rollback).
+
+Which families serve on which backend is ``registry.Arch.serve_backends``:
+in the port the ``ssm`` family serves on ``slot``/``arena`` and the dense
+family on ``paged``. Not ported yet (refused with ``NotImplementedError``):
+the dense family on ``slot``/``arena``, ring blocks for sliding-window
+layers, chunked prefill and mesh sharding.
 """
 
 from __future__ import annotations
@@ -25,10 +37,10 @@ import torch
 
 from repro_torch.models import registry
 from repro_torch.models.cache import (
-    BlockAllocator, PagedLayout, blocks_for, bucket_for, chain_key,
-    chain_seed, copy_block, prefix_chain_keys,
+    BlockAllocator, PagedLayout, blocks_for, bucket_for, cache_insert,
+    chain_key, chain_seed, copy_block, prefix_chain_keys,
 )
-from repro_torch.serve.config import EngineConfig
+from repro_torch.serve.config import BACKENDS, EngineConfig
 from repro_torch.serve.request import Request
 
 
@@ -91,6 +103,7 @@ def continuation_tokens(req: Request) -> np.ndarray:
 class _BackendBase:
     """State + counters shared by all backends."""
 
+    vectorized = True                 # False: decode/prefill return host ints
     max_admit: Optional[int] = None   # None → EngineConfig.admit_batch
 
     def __init__(self, arch: registry.Arch, params, ec: EngineConfig,
@@ -136,13 +149,23 @@ class _BackendBase:
 
 def validate_paged_config(arch: registry.Arch, ec: EngineConfig) -> None:
     """Construction-time checks for the paged backend: the family must
-    page, quantized archs need int8 block-pool support, and layouts the
-    port has not implemented are refused by name."""
+    page (recurrent state has no growing KV cache), quantized archs need
+    int8 block-pool support, and layouts the port has not implemented are
+    refused by name."""
     cfg = arch.cfg
-    if not (arch.supports_paged and arch.supports_paged_prefill):
+    if not arch.supports_paged:
+        bad = "".join(sorted(set(cfg.pattern) - set("GLB")))
+        why = (f"layer kinds {bad!r} keep recurrent state, which has no "
+               f"growing KV cache to page" if bad else
+               "the family does not implement paged_decode_step")
         raise ValueError(
-            f"paged serving: family {cfg.family!r} has no paged decode/"
-            f"prefill path")
+            f"paged serving: family {cfg.family!r} (layer pattern "
+            f"{cfg.pattern!r}) has no paged decode path — {why}; use "
+            f"the arena backend for this arch")
+    if not arch.supports_paged_prefill:
+        raise ValueError(
+            f"paged serving: family {cfg.family!r} has a paged decode path "
+            f"but no paged prefill")
     if cfg.serve_quant and not arch.supports_paged_int8:
         raise ValueError(
             f"paged serving: arch {cfg.name!r} is quantized (serve_quant) "
@@ -152,6 +175,112 @@ def validate_paged_config(arch: registry.Arch, ec: EngineConfig) -> None:
             f"ring layout: arch {cfg.name!r} has sliding-window layers "
             f"(local_window={cfg.local_window} < max_len={ec.max_len}), "
             f"whose ring-block pools are not ported yet")
+
+
+class ArenaBackend(_BackendBase):
+    """Vectorized dense-arena backend.
+
+    One batched cache from ``arch.init_cache(slots, max_len)`` with a
+    per-slot position vector; one batched decode over the whole batch per
+    iteration, empty slots included (their rows are ignored host-side and
+    overwritten by the next admission); per-slot sampling on the device.
+    Admission prefills the exact continuation as a batch-1 cache and
+    splices it into the slot (``cache_insert``, in place). W8A8 serving
+    parameters exist only for the dense families, which do not serve here
+    yet, so the decode takes the float parameters. No ported
+    family takes right-padded prompts here, so there is no bucketed
+    prefill: eager PyTorch has no trace to save, and the families that pad
+    (the dense ones) do not serve on the arena in the port yet.
+    """
+
+    name = "arena"
+
+    def __init__(self, arch: registry.Arch, params, ec: EngineConfig,
+                 device: torch.device):
+        super().__init__(arch, params, ec, device)
+        self.cache = arch.init_cache(ec.slots, ec.max_len, device=device)
+        self.last_tok = torch.zeros((ec.slots,), dtype=torch.int32,
+                                    device=device)
+
+    def decode(self, active, slots, samp, any_sampling):
+        logits, self.cache = self.arch.decode_step(self.params, self.cache,
+                                                   self.last_tok)
+        tok = sample_tokens_per_slot(logits, *samp, self.ec.seed,
+                                     any_sampling=any_sampling)
+        # a copy: this iteration's admissions write their first token into
+        # last_tok in place, and ``tok`` is still to be fetched
+        self.last_tok = tok.clone()
+        self.decode_dispatches += 1
+        return tok
+
+    def prefill(self, req: Request, slot: int, samp, any_sampling):
+        """Prefill ``req``'s continuation into ``slot``; returns the
+        on-device sampled first token (fetched later, with the batch)."""
+        toks = torch.from_numpy(continuation_tokens(req)[None]).to(
+            self.device)
+        logits, single = self.arch.prefill(self.params, toks, self.ec.max_len)
+        cache_insert(self.cache, single, slot)
+        tok = sample_tokens_per_slot(logits, *samp, self.ec.seed,
+                                     any_sampling=any_sampling)  # [1]
+        self.last_tok[slot] = tok[0]
+        return tok[0]
+
+
+class SlotBackend(_BackendBase):
+    """Sequential per-slot reference backend (the pre-batching baseline).
+
+    Decodes each slot with a batch-1 call and syncs to the host for the
+    argmax of every token of every slot — the numerical reference for the
+    vectorized backends. Greedy-only; admits at most one request per
+    iteration.
+    """
+
+    name = "slot"
+    vectorized = False
+    max_admit = 1
+
+    def __init__(self, arch: registry.Arch, params, ec: EngineConfig,
+                 device: torch.device):
+        super().__init__(arch, params, ec, device)
+        if not ec.greedy:
+            raise NotImplementedError(
+                "reference engine is greedy-only; use the arena backend")
+        self.caches: List[Optional[dict]] = [None] * ec.slots
+
+    def validate_request(self, req: Request) -> None:
+        # greedy-only reference: refuse rather than silently decode a
+        # sampling request with argmax
+        if self.ec.effective_temperature(req.temperature) > 0 \
+                or req.top_k > 0:
+            raise NotImplementedError(
+                f"reference engine is greedy-only and would ignore request "
+                f"{req.rid}'s temperature/top_k; use the arena backend")
+
+    def decode(self, active, slots, samp, any_sampling):
+        """Batch-1 decode per active slot, host argmax per token — returns
+        ``{slot: host token}``."""
+        out = {}
+        for slot in active:
+            last = torch.tensor([slots[slot].output[-1]], dtype=torch.int32,
+                                device=self.device)
+            logits, self.caches[slot] = self.arch.decode_step(
+                self.params, self.caches[slot], last)
+            self.decode_dispatches += 1
+            out[slot] = int(torch.argmax(logits[0]))   # host sync (counted)
+            self.transfers += 1
+        return out
+
+    def prefill(self, req: Request, slot: int, samp, any_sampling):
+        toks = torch.from_numpy(continuation_tokens(req)[None]).to(
+            self.device)
+        logits, self.caches[slot] = self.arch.prefill(self.params, toks,
+                                                      self.ec.max_len)
+        tok = int(torch.argmax(logits[0]))             # host sync (counted)
+        self.transfers += 1
+        return tok
+
+    def release(self, slot: int, req: Request) -> None:
+        self.caches[slot] = None
 
 
 class PagedBackend(_BackendBase):
@@ -532,10 +661,33 @@ class PagedBackend(_BackendBase):
         return length, tok[0]
 
 
+_BACKENDS = {
+    "slot": SlotBackend,
+    "arena": ArenaBackend,
+    "paged": PagedBackend,
+}
+
+# config.BACKENDS is the single source of truth for valid names; this
+# dispatch table must cover it exactly — drift fails at import, not at
+# serve time
+if set(_BACKENDS) != set(BACKENDS):
+    raise ImportError(
+        f"backend registry drift: config.BACKENDS={BACKENDS} vs "
+        f"dispatch table {tuple(_BACKENDS)}")
+
+
 def make_backend(name: str, arch: registry.Arch, params, ec: EngineConfig,
                  device: torch.device) -> _BackendBase:
-    if name != "paged":
+    try:
+        cls = _BACKENDS[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown serve backend {name!r} "
+            f"(supported: {', '.join(BACKENDS)})") from None
+    if cls is not PagedBackend and name not in arch.serve_backends:
         raise NotImplementedError(
-            f"backend={name!r}: only the 'paged' backend is ported to "
-            f"repro_torch yet")
-    return PagedBackend(arch, params, ec, device)
+            f"backend={name!r}: family {arch.cfg.family!r} has no ported "
+            f"dense-arena entry points (prefill/decode_step/init_cache) in "
+            f"repro_torch yet; it serves on "
+            f"{', '.join(arch.serve_backends) or 'no backend'}")
+    return cls(arch, params, ec, device)

@@ -2,12 +2,19 @@
 
 ``EngineConfig`` is the construction surface of
 :class:`repro_torch.serve.api.LLMEngine`. It keeps the reference's fields
-and validation, with two differences: ``backend`` defaults to ``"paged"``
-(the only backend ported), and there is no ``attn_backend`` — the port has
-no per-op backend ladder, the device decides which version of a kernel
-runs. Settings the port does not implement yet (``prefill_chunk_tokens``,
-a backend other than ``paged``) are accepted here and refused by
-``LLMEngine`` at construction with ``NotImplementedError``.
+and validation, with two differences:
+
+* ``backend`` defaults to ``"paged"``, where the reference's default is
+  ``"arena"``: the dense family, which most configs belong to, serves only
+  on the paged backend in the port so far (its non-paged entry points are
+  not ported). The ``ssm`` family serves on ``"arena"`` and ``"slot"`` and
+  has to ask for one of them.
+* there is no ``attn_backend`` — the port has no per-op backend ladder, the
+  device decides which version of a kernel runs.
+
+Settings the port does not implement yet (``prefill_chunk_tokens``, a
+family on a backend whose entry points are not ported) are accepted here
+and refused by ``LLMEngine`` at construction with ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -66,6 +73,8 @@ class EngineConfig:
     spec_method: str = "ngram"
     # not ported yet (refused by LLMEngine when set)
     prefill_chunk_tokens: Optional[int] = None
+    # execution backend: "slot" (sequential per-slot reference), "arena"
+    # (batched dense arena), "paged" (shared block pool; the port's default)
     backend: str = "paged"
     # admission policy: "fcfs" | "bounded" | "qos" (see scheduler.py)
     scheduler: str = "bounded"

@@ -13,7 +13,10 @@ attention (decode and verify) is allclose with ``paged_attention_ref`` /
 outputs: online-softmax reordering only, 1e-4; bf16 outputs: both sides
 round an f32 result to bf16, 1.6e-2 ≈ two bf16 ulps). The verify kernels
 at ``Q = 1``, and row 0 of any ``Q``, are bit-equal to the decode kernels
-at the same lengths.
+at the same lengths. The SSD chunked scan is allclose with
+``ssd_scan_chunked_ref`` over the zero-padded sequence (float32; only the
+order of additions differs: ``rtol = 1e-4``, ``atol = 1e-4 · max|y|``), its
+final state likewise.
 """
 
 import numpy as np
@@ -28,6 +31,10 @@ from repro_torch.kernels.paged_attention import ops as attn_ops
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_int8_dequant_ref, paged_attention_ref,
     paged_attention_verify_int8_dequant_ref, paged_attention_verify_ref,
+)
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import (
+    pad_to_chunks, ssd_scan_chunked_ref,
 )
 
 ACT_SCALES = (4.0 / 127, 4.0 / 127)
@@ -271,3 +278,120 @@ def test_spec_serving_on_card_agrees_with_cpu_and_spec_off(cuda_device):
             same = sum(a == b for x, y in zip(outs["cuda", 3], outs[other])
                        for a, b in zip(x, y))
             assert same >= 0.9 * 72, (quant_on, other, outs)
+
+
+def _ssd_case(dev, s, *, h=80, g=1, p=64, n=128, decay=2.0, seed=0):
+    """mamba2-2.7b's widths by default (80 heads × P 64, N 128, one group);
+    Δ·A drawn in (-decay, 0]."""
+    gen = torch.Generator(device=dev).manual_seed(seed + s)
+    dta = -torch.rand((1, h, s), generator=gen, device=dev) * decay
+    x = torch.randn((1, h, s, p), generator=gen, device=dev)
+    bm = torch.randn((1, g, s, n), generator=gen, device=dev) * 0.3
+    cm = torch.randn((1, g, s, n), generator=gen, device=dev) * 0.3
+    return dta, x, bm, cm
+
+
+def _ssd_plain(args, s, chunk):
+    chunk = min(chunk, s)
+    y, state = ssd_scan_chunked_ref(*pad_to_chunks(*args, chunk), chunk=chunk,
+                                    return_state=True)
+    return y[:, :, :s], state
+
+
+def _ssd_close(got, want):
+    atol = 1e-4 * float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=atol)
+
+
+@pytest.mark.parametrize("decay", [0.1, 2.0])
+@pytest.mark.parametrize("s", [1, 2, 5, 127, 128, 129, 300, 512, 2048])
+def test_ssd_scan_matches_plain_version(cuda_device, s, decay):
+    """Ragged tails, S < 128 (one short chunk) and whole chunks, at
+    mamba2-2.7b's widths; with and without the state."""
+    args = _ssd_case(cuda_device, s, decay=decay)
+    before = ssd_ops.KERNEL.launches
+    y, state = ssd_ops.ssd_scan_cuda(*args, chunk=min(128, s),
+                                     return_state=True)
+    y_only = ssd_ops.ssd_scan_cuda(*args, chunk=min(128, s))
+    torch.cuda.synchronize()
+    assert ssd_ops.KERNEL.launches == before + 2
+    want_y, want_state = _ssd_plain(args, s, 128)
+    assert torch.isfinite(y).all() and torch.isfinite(state).all()
+    _ssd_close(y, want_y)
+    _ssd_close(state, want_state)
+    assert torch.equal(y_only, y)
+
+
+@pytest.mark.parametrize("s,chunk", [(64, 32), (100, 32), (37, 64)])
+@pytest.mark.parametrize("h,g,p,n", [(8, 2, 64, 128), (8, 2, 16, 16),
+                                     (6, 3, 100, 20)],
+                         ids=["groups2", "smoke", "ragged-widths"])
+def test_ssd_scan_groups_and_widths(cuda_device, s, chunk, h, g, p, n):
+    """G = 2 with H/G = 4, the smoke widths (P = N = 16), and P, N that are
+    not multiples of the kernel's tiles; chunks shorter than 128."""
+    args = _ssd_case(cuda_device, s, h=h, g=g, p=p, n=n, decay=0.5)
+    y, state = ssd_ops.ssd_scan_cuda(*args, chunk=min(chunk, s),
+                                     return_state=True)
+    want_y, want_state = _ssd_plain(args, s, chunk)
+    _ssd_close(y, want_y)
+    _ssd_close(state, want_state)
+
+
+def test_ssd_scan_op_dispatches_by_device(cuda_device):
+    """The public op launches the kernel for CUDA tensors (bf16 in, bf16
+    out) and agrees with itself on the CPU."""
+    args = _ssd_case(cuda_device, 200, h=8, g=2, p=16, n=16)
+    before = ssd_ops.KERNEL.launches
+    y = ssd_ops.ssd_scan(args[0], args[1].bfloat16(), *args[2:])
+    assert ssd_ops.KERNEL.launches == before + 1 and y.dtype == torch.bfloat16
+    cpu = ssd_ops.ssd_scan(*(a.cpu() for a in (args[0], args[1].bfloat16(),
+                                                args[2], args[3])))
+    torch.testing.assert_close(y.float().cpu(), cpu.float(), rtol=1.6e-2,
+                               atol=1.6e-2 * float(cpu.float().abs().max()))
+
+
+def test_ssd_scan_wrapper_checks_inputs(cuda_device):
+    dta, x, bm, cm = _ssd_case(cuda_device, 16, h=4, g=1, p=16, n=16)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_ops.ssd_scan_cuda(dta, x, bm, cm, chunk=256)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_ops.ssd_scan_cuda(dta, x.bfloat16(), bm, cm, chunk=16)
+    big = torch.zeros((1, 1, 16, 160), device=cuda_device)
+    with pytest.raises(ValueError, match="state size"):
+        ssd_ops.ssd_scan_cuda(dta, x, big, big, chunk=16)
+
+
+def test_mamba_serving_on_card_agrees_with_cpu_and_slot(cuda_device):
+    """mamba2-2.7b-smoke (float32) through the arena on the card and on the
+    CPU: the same greedy tokens up to near-ties; on the card, the slot
+    backend gives the arena's tokens."""
+    import dataclasses
+
+    from repro_torch import bridge, configs
+    from repro_torch.models import registry
+    from repro_torch.serve import EngineConfig, LLMEngine
+
+    cfg = dataclasses.replace(configs.smoke_config("mamba2-2.7b"),
+                              dtype="float32")
+    arch = registry.build(cfg)
+    npp = bridge.numpy_params(arch.schema(), seed=0)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(3, 40)))
+               .astype(np.int32) for _ in range(6)]
+    outs = {}
+    before = ssd_ops.KERNEL.launches
+    for device, backend in (("cuda", "arena"), ("cuda", "slot"),
+                            ("cpu", "arena")):
+        eng = LLMEngine(arch, bridge.params_from_numpy(npp, device),
+                        EngineConfig(backend=backend, slots=4, max_len=64,
+                                     admit_window=2), device=device)
+        hs = [eng.add_request(p, max_new_tokens=12) for p in prompts]
+        eng.run_until_drained()
+        outs[device, backend] = [eng.request(h).output for h in hs]
+    # each admission prefill runs the kernel once per layer
+    assert ssd_ops.KERNEL.launches - before >= 2 * len(prompts) * cfg.n_layers
+    assert outs["cuda", "slot"] == outs["cuda", "arena"]
+    same = sum(a == b for x, y in zip(outs["cuda", "arena"],
+                                      outs["cpu", "arena"])
+               for a, b in zip(x, y))
+    assert same >= 0.9 * 72, outs

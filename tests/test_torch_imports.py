@@ -35,7 +35,9 @@ def test_port_imports_neither_jax_nor_the_reference_package():
             "repro_torch.kernels.paged_attention.ops",
             "repro_torch.kernels.paged_attention.ref",
             "repro_torch.models.cache", "repro_torch.models.transformer",
-            "repro_torch.bridge"} <= set(mods)
+            "repro_torch.models.ssm", "repro_torch.kernels.ssd_scan.ops",
+            "repro_torch.kernels.ssd_scan.ref", "repro_torch.bridge"
+            } <= set(mods)
     script = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -67,7 +69,21 @@ def test_kernels_are_registered_with_their_tpu_counterparts():
     by_name = {k.name: k for k in all_kernels()}
     assert set(by_name) == {"int8_gemm", "paged_attention",
                             "paged_attention_int8", "paged_attention_verify",
-                            "paged_attention_verify_int8"}
+                            "paged_attention_verify_int8", "ssd_scan"}
     for k in by_name.values():
         assert k.library.source.exists()
         assert k.replaces.startswith("src/repro/kernels/")
+
+
+def test_arena_entry_point_raises_without_cuda_unless_cpu_is_asked(
+        monkeypatch):
+    """The Mamba-2 family on the arena backend: the same device rule."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    arch = registry.build(tconfigs.smoke_config("mamba2-2.7b"))
+    params = bridge.params_from_numpy(bridge.numpy_params(arch.schema(), 0),
+                                      "cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LLMEngine(arch, params, EngineConfig(backend="arena"))
+    eng = LLMEngine(arch, params, EngineConfig(backend="arena"), device="cpu")
+    assert eng.cache["ssd"].device.type == "cpu"
+    assert eng.cache["ssd"].dtype == torch.float32
