@@ -14,7 +14,9 @@ Phases (each exits non-zero on failure; none is caught):
    decode's M = 8 and verify's M = 40), paged decode and verify attention
    allclose, verify at Q = 1 bit-equal to decode — and the SSD chunked scan
    at mamba2-2.7b's widths (S = 1, 5, 129, 512, 2048, with and without the
-   state, and a G = 2 case) allclose; time kernel, plain version, a library
+   state, and a G = 2 case) allclose, and the RG-LRU scan at
+   recurrentgemma-9b's width (D = 4096; S = 1 to 2300 and a B = 3 case,
+   bf16 and f32 inputs) allclose; time kernel, plain version, a library
    yardstick where one PyTorch call computes the same function (timed here,
    never called by the port) and the card's bound;
 3. serve full-width glm4-9b (random weights from a seeded generator, depth
@@ -30,7 +32,13 @@ Phases (each exits non-zero on failure; none is caught):
    ``LLMEngine(backend="arena")``, its launch counts set to 0 just before
    and read just after; check every request finishes with its token count,
    one more decode step's logits are finite, and on a small input the card
-   agrees with the CPU and the slot backend with the arena.
+   agrees with the CPU and the slot backend with the arena;
+5. serve full-width recurrentgemma-9b (random bf16 weights, 38 layers: 26
+   recurrent, 12 local attention) through ``LLMEngine(backend="arena")``
+   with two prompts longer than the 2048-token window, so the ring caches
+   wrap; the same checks as phase 4 (small input: recurrentgemma-9b-smoke,
+   window 16), and B9 launched once per recurrent layer and admission
+   prefill.
 
 The last lines of stdout are a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -468,6 +476,66 @@ def check_ssd_scan(torch, cfg, lengths, main_len):
         per_len_ms=per_len)
 
 
+def check_rglru(torch, cfg, lengths, main_len):
+    """Kernel B9 at recurrentgemma-9b's width (one prompt: B = 1, D =
+    lru_width = 4096, and a B = 3 case) against ``rglru_ref``, with f32
+    ``log_a`` and bf16 ``u`` (the model's dtypes) or f32 ``u``: f32 output
+    allclose (rtol 1e-5, atol 1e-5·max|h|), bf16 output at most one bf16
+    ulp apart."""
+    from repro_torch.kernels.rglru import ops
+    from repro_torch.kernels.rglru.ref import rglru_ref
+
+    dev = torch.device("cuda")
+    d = cfg.lru_width
+
+    def case(b, s, u_dtype):
+        gen = torch.Generator(device=dev).manual_seed(SEED + s + b)
+        # log_a as the model makes it: −8·softplus(Λ)·r, r a sigmoid
+        lam = torch.randn((d,), generator=gen, device=dev)
+        r = torch.sigmoid(torch.randn((b, s, d), generator=gen, device=dev))
+        log_a = -8.0 * torch.logaddexp(lam, torch.zeros_like(lam)) * r
+        u = torch.randn((b, s, d), generator=gen, device=dev).to(u_dtype)
+        return log_a, u
+
+    errs = {}
+    for b, s in [(1, s) for s in lengths] + [(3, 300)]:
+        for u_dtype in (torch.bfloat16, torch.float32):
+            log_a, u = case(b, s, u_dtype)
+            h = ops.rglru_cuda(log_a, u)
+            want = rglru_ref(log_a, u)
+            torch.cuda.synchronize()
+            g, w = h.float(), want.float()
+            if u_dtype == torch.float32:
+                torch.testing.assert_close(g, w, rtol=1e-5,
+                                           atol=1e-5 * float(w.abs().max()))
+            else:
+                mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+                ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+                bad = int(((g - w).abs() > ulp).sum())
+                if bad:
+                    raise AssertionError(f"rglru B={b} S={s} bf16: {bad} "
+                                         f"outputs more than one ulp apart")
+            name = "bf16" if u_dtype == torch.bfloat16 else "f32"
+            errs[f"B={b},S={s},{name}"] = (g - w).abs().max().item()
+    log_a, u = case(1, main_len, torch.bfloat16)
+    kernel_ms = timed(torch, lambda: ops.rglru_cuda(log_a, u), 50)
+    plain_ms = timed(torch, lambda: rglru_ref(log_a, u), 5)
+    per_len = {s: timed(torch, lambda a=case(1, s, torch.bfloat16):
+                        ops.rglru_cuda(*a), 20) for s in lengths}
+    # bytes: log_a (f32) and u (bf16) in once, h (bf16) out once; per
+    # element 2·log_a, β·u, a·h, the add and exp, expm1, sqrt
+    n = main_len * d
+    b_ms, b_by = bound(n * (4 + 2 + 2), 7 * n, "f32")
+    return dict(
+        name="rglru", route="cuda",
+        source="src/repro_torch/kernels/rglru/csrc/rglru.cu",
+        replaces=ops.KERNEL.replaces.split()[0],
+        max_abs_err=max(errs.values()), ms=kernel_ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"B=1 S={main_len} D={d}, f32 log_a, bf16 u and h",
+        errs=errs, per_len_ms=per_len)
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the port's main path at full width
 # ---------------------------------------------------------------------------
@@ -479,6 +547,18 @@ def random_prompts(vocab, n_requests, seed):
     rng = np.random.default_rng(seed)
     return [rng.integers(0, vocab, int(rng.integers(64, 513))).astype(np.int32)
             for _ in range(n_requests)]
+
+
+def hybrid_prompts(vocab, seed):
+    """14 prompts of 64–512 random tokens and 2 of 2100–2300: longer than
+    recurrentgemma-9b's 2048-token window."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = [int(rng.integers(64, 513)) for _ in range(14)]
+    lens[3:3] = [int(rng.integers(2100, 2301))]
+    lens[10:10] = [int(rng.integers(2100, 2301))]
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
 
 
 def shared_prefix_prompts(vocab, n_requests, seed):
@@ -618,14 +698,15 @@ def small_input_spec_agreement(torch, quant):
 # ---------------------------------------------------------------------------
 
 
-def serve_arena(torch, arch, params, prompts, slots, max_new):
+def serve_arena(torch, arch, params, prompts, slots, max_new, max_len):
     """Full-width serving through ``LLMEngine(backend="arena")`` with the
     launch counts set to 0 just before and read just after."""
     from repro_torch.kernels.build import all_kernels
+    from repro_torch.models.schema import leaves
     from repro_torch.serve import EngineConfig, LLMEngine
 
     eng = LLMEngine(arch, params, EngineConfig(
-        backend="arena", slots=slots, max_len=512 + max_new, admit_window=2,
+        backend="arena", slots=slots, max_len=max_len, admit_window=2,
         scheduler="bounded"))
     for k in all_kernels():
         k.launches = 0
@@ -655,7 +736,7 @@ def serve_arena(torch, arch, params, prompts, slots, max_new):
         prompt_tokens=int(sum(len(p) for p in prompts)),
         state_bytes_per_slot=sum(
             v[:, :1].numel() * v.element_size()
-            for k, v in eng.cache.items() if k != "len"),
+            for v in leaves(eng.cache) if v.dim() > 1),
         launches=counts)
 
 
@@ -694,18 +775,18 @@ def profile_decode(torch, arch, params, cache, tokens):
                 top={e.key: round(dev_us(e) / 1e3, 4) for e in top})
 
 
-def small_input_mamba(torch):
-    """mamba2-2.7b-smoke in float32 through the arena on the card (kernel
-    B8) and on the CPU (plain versions): ≥ 90 % equal greedy tokens; on the
-    card, the slot backend gives the arena's tokens."""
+def small_input_arena(torch, name):
+    """``name``'s smoke config in float32 through the arena on the card
+    (its kernel: B8 for mamba2-2.7b, B9 for recurrentgemma-9b) and on the
+    CPU (plain versions): ≥ 90 % equal greedy tokens; on the card, the slot
+    backend gives the arena's tokens."""
     from repro_torch import bridge, configs
     from repro_torch.models import registry
     from repro_torch.serve import EngineConfig, LLMEngine
 
     import numpy as np
 
-    cfg = dataclasses.replace(configs.smoke_config("mamba2-2.7b"),
-                              dtype="float32")
+    cfg = dataclasses.replace(configs.smoke_config(name), dtype="float32")
     arch = registry.build(cfg)
     npp = bridge.numpy_params(arch.schema(), seed=SEED)
     rng = np.random.default_rng(1)
@@ -728,7 +809,7 @@ def small_input_mamba(torch):
                for a, b in zip(x, y))
     total = sum(len(x) for x in outs["cpu", "arena"])
     if same / total < 0.9:
-        raise AssertionError(f"mamba card vs CPU greedy tokens: "
+        raise AssertionError(f"{name} card vs CPU greedy tokens: "
                              f"{same}/{total} agree")
     return same, total
 
@@ -768,6 +849,7 @@ def main() -> None:
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     flush = scratch.zero_
     mcfg = configs.get_config("mamba2-2.7b")
+    rcfg = configs.get_config("recurrentgemma-9b")
     entries = [check_int8_gemm(torch, cfg, slots, slots * (spec_k + 1)),
                check_attention(torch, cfg, slots, blk, lens, flush,
                                int8=False),
@@ -777,7 +859,9 @@ def main() -> None:
                             int8=False),
                check_verify(torch, cfg, slots, blk, lens, spec_k + 1, flush,
                             int8=True),
-               check_ssd_scan(torch, mcfg, [1, 5, 129, 512, 2048], 512)]
+               check_ssd_scan(torch, mcfg, [1, 5, 129, 512, 2048], 512),
+               check_rglru(torch, rcfg,
+                           [1, 5, 255, 256, 257, 512, 2048, 2300], 512)]
     del scratch
     for e in entries:
         lib = ("null" if e["library_ms"] is None
@@ -786,10 +870,14 @@ def main() -> None:
               f"plain_ms={e['plain_ms']:.4f} bound_ms={e['bound_ms']:.4f} "
               f"({e['bound_by']}) library_ms={lib} "
               f"max_abs_err={e['max_abs_err']} [{e['shape']}]", flush=True)
-    ssd = entries[-1]
+    ssd, lru = entries[-2:]
     print(f"kernel ssd_scan max |err| per case: {json.dumps(ssd['errs'])}; "
           f"kernel ms per S (with state): "
           f"{json.dumps({s: round(t, 4) for s, t in ssd['per_len_ms'].items()})}",
+          flush=True)
+    print(f"kernel rglru max |err| per case: {json.dumps(lru['errs'])}; "
+          f"kernel ms per S (B=1, bf16): "
+          f"{json.dumps({s: round(t, 4) for s, t in lru['per_len_ms'].items()})}",
           flush=True)
     gemm = entries[0]
     print(f"kernel int8_gemm at the verify pass's M={gemm['verify_rows']}: "
@@ -868,7 +956,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- phase 4: full-width mamba2-2.7b through LLMEngine(backend="arena") -
-    same_m, total_m = small_input_mamba(torch)
+    same_m, total_m = small_input_arena(torch, "mamba2-2.7b")
     print(f"small input mamba2-2.7b-smoke: card vs CPU greedy tokens "
           f"{same_m}/{total_m}; on the card slot == arena", flush=True)
     march = registry.build(mcfg)
@@ -882,7 +970,7 @@ def main() -> None:
           f"({time.perf_counter() - t0:.1f} s to draw on the card)", flush=True)
     r = serve_arena(torch, march, mparams,
                     random_prompts(mcfg.vocab, n_requests, seed=6), slots,
-                    max_new)
+                    max_new, 512 + max_new)
     print(f"serve mamba2-2.7b arena: {n_requests} requests x {max_new} tokens "
           f"({r['prompt_tokens']} prompt tokens), "
           f"tokens/s={r['tokens_per_s']:.2f} iter_ms(p50)="
@@ -904,6 +992,53 @@ def main() -> None:
           f"(torch.profiler), device busy share {busy}; device ms by op: "
           f"{json.dumps(prof['top'])}", flush=True)
     del mparams, r
+    torch.cuda.empty_cache()
+
+    # -- phase 5: full-width recurrentgemma-9b through the arena ------------
+    same_h, total_h = small_input_arena(torch, "recurrentgemma-9b")
+    print(f"small input recurrentgemma-9b-smoke (window 16): card vs CPU "
+          f"greedy tokens {same_h}/{total_h}; on the card slot == arena",
+          flush=True)
+    rarch = registry.build(rcfg)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rparams = schema.init_params(rarch.schema(), gen, "cuda",
+                                 dtype=rcfg.compute_dtype)
+    torch.cuda.synchronize()
+    print(f"recurrentgemma-9b params: "
+          f"{schema.param_count(rarch.schema()) / 1e9:.2f} B "
+          f"({time.perf_counter() - t0:.1f} s to draw on the card)", flush=True)
+    prompts = hybrid_prompts(rcfg.vocab, seed=8)
+    max_len = 2336
+    win = min(rcfg.local_window, max_len)
+    if max(len(p) for p in prompts) <= win:
+        raise AssertionError("no prompt is longer than the ring window")
+    r = serve_arena(torch, rarch, rparams, prompts, slots, max_new, max_len)
+    print(f"serve recurrentgemma-9b arena: {n_requests} requests x {max_new} "
+          f"tokens ({r['prompt_tokens']} prompt tokens, longest "
+          f"{max(len(p) for p in prompts)} > window {win}: the rings wrap), "
+          f"tokens/s={r['tokens_per_s']:.2f} iter_ms(p50)="
+          f"{r['decode_ms_per_iter_p50']:.2f} iterations={r['iterations']:.0f} "
+          f"preemptions={r['preemptions']} prefills={r['prefills']} "
+          f"state_bytes_per_slot={r['state_bytes_per_slot']} "
+          f"kernels={json.dumps(r['launches'])}", flush=True)
+    pattern, n_groups, tail = rcfg.layer_layout()
+    n_rec = n_groups * pattern.count("R") + tail.count("R")
+    if r["launches"]["rglru"] != n_rec * r["prefills"]:
+        raise AssertionError(
+            f"rglru launched {r['launches']['rglru']} times for "
+            f"{r['prefills']} admission prefills of {n_rec} recurrent layers")
+    main_counts["rglru"] = r["launches"]["rglru"]
+    prof = profile_decode(torch, rarch, rparams, r["cache"], r["last_tok"])
+    busy = (f"{prof['device_ms'] / prof['wall_ms']:.4f}" if prof["device_ms"]
+            else "not measured")
+    print(f"recurrentgemma-9b arena decode step ({slots} slots): host wall "
+          f"{prof['wall_ms']:.2f} ms, device kernel time "
+          f"{prof['device_ms']:.2f} ms in {prof['kernel_launches']} kernels "
+          f"(torch.profiler), device busy share {busy}; device ms by op: "
+          f"{json.dumps(prof['top'])}", flush=True)
+    del rparams, r
+    torch.cuda.empty_cache()
 
     for e in entries:
         e["launches"] = main_counts[e["name"]]

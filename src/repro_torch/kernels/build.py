@@ -138,6 +138,7 @@ def all_kernels() -> List[CudaKernel]:
     """Every kernel of the port (importing the ops modules registers them)."""
     from repro_torch.kernels.int8_gemm import ops as _gemm  # noqa: F401
     from repro_torch.kernels.paged_attention import ops as _attn  # noqa: F401
+    from repro_torch.kernels.rglru import ops as _rglru  # noqa: F401
     from repro_torch.kernels.ssd_scan import ops as _ssd  # noqa: F401
 
     return list(_REGISTRY.values())

@@ -4,7 +4,9 @@
 ``chunked_attention`` is plain PyTorch, as the reference's is plain jnp:
 query blocks stream over the keys so the score matrix is one chunk at a
 time, with causal, bidirectional and sliding-window masks and GQA head
-grouping. Decode attention over the block pool lives in
+grouping. ``decode_attention`` is the one-token attention over a dense
+per-slot cache (the hybrid family's ring layers), plain PyTorch as the
+reference's is plain jnp. Decode attention over the block pool lives in
 ``repro_torch.kernels.paged_attention``.
 """
 
@@ -72,3 +74,32 @@ def chunked_attention(
         p = softmax(logits).to(v.dtype)
         outs.append(p.float() @ vf)
     return torch.cat(outs, dim=2).to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,        # [B, Hq, 1, D]
+    k_cache: torch.Tensor,  # [B, Hkv, S_cache, D]
+    v_cache: torch.Tensor,
+    cache_len,              # [] or [B] int — valid entries (per row)
+    *,
+    ring: bool = False,     # ring buffer (sliding-window cache)
+) -> torch.Tensor:
+    """One query row per sequence against its first ``cache_len`` cache
+    rows (all of them once a ring has wrapped). KV heads stay unexpanded:
+    the query-group dimension rides in the products instead."""
+    b, hq, _, d = q.shape
+    hkv, s_cache = k_cache.shape[1], k_cache.shape[2]
+    group = hq // hkv
+    idx = torch.arange(s_cache, device=q.device)
+    cl = torch.as_tensor(cache_len, dtype=torch.int32,
+                         device=q.device).reshape(-1, 1)
+    if ring:
+        cl = torch.clamp(cl, max=s_cache)
+    valid = idx[None, :] < cl                          # [B or 1, S]
+    qg = q.reshape(b, hkv, group, d)                   # Sq = 1 folded in
+    logits = torch.einsum("bhgd,bhkd->bhgk", qg.float(),
+                          k_cache.float()) * (d ** -0.5)
+    logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
+    p = softmax(logits)
+    out = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
+    return out.reshape(b, hq, 1, d).to(q.dtype)

@@ -37,14 +37,29 @@ def batch_axis(leaf: torch.Tensor) -> int:
 def cache_insert(batched, single, slot: int):
     """Overwrite slot ``slot`` of a batched cache with a batch-1 cache of
     the same family and shapes (the whole slot row, position counter
-    included), in place; returns ``batched``."""
-    for name, b in batched.items():
-        s = single[name]
-        want = b.shape[:batch_axis(b)] + (1,) + b.shape[batch_axis(b) + 1:]
-        if s.shape != want:
-            raise ValueError(f"cache_insert: {name} {tuple(s.shape)} does "
-                             f"not fit a slot of {tuple(b.shape)}")
-        b.narrow(batch_axis(b), slot, 1).copy_(s)
+    included), in place; returns ``batched``. Both caches are trees of
+    dicts and lists (the hybrid family nests per-kind dicts in ``stacks``
+    and ``tail`` lists) with the same structure."""
+
+    def ins(b, s, name: str):
+        if isinstance(b, dict):
+            for k, v in b.items():
+                ins(v, s[k], f"{name}.{k}" if name else k)
+        elif isinstance(b, (list, tuple)):
+            if len(b) != len(s):
+                raise ValueError(f"cache_insert: {name} has {len(s)} "
+                                 f"entries, the arena {len(b)}")
+            for i, (bv, sv) in enumerate(zip(b, s)):
+                ins(bv, sv, f"{name}[{i}]")
+        else:
+            ax = batch_axis(b)
+            want = b.shape[:ax] + (1,) + b.shape[ax + 1:]
+            if s.shape != want:
+                raise ValueError(f"cache_insert: {name} {tuple(s.shape)} "
+                                 f"does not fit a slot of {tuple(b.shape)}")
+            b.narrow(ax, slot, 1).copy_(s)
+
+    ins(batched, single, "")
     return batched
 
 

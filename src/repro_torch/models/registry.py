@@ -2,8 +2,9 @@
 
 Ported families: the dense transformer (which also serves the ``vlm-dense``
 configs, frontend stubbed, embeddings in) on its paged serving path, and
-the Mamba-2 ``ssm`` family on the dense-arena entry points (``forward``,
-``prefill``, ``decode_step``, ``init_cache``). Other families raise
+the Mamba-2 ``ssm`` and Griffin ``hybrid`` families on the dense-arena
+entry points (``forward``, ``prefill``, ``decode_step``, ``init_cache``).
+Other families raise
 ``NotImplementedError`` naming the family. Entry points a family module
 does not define stay ``None``, as in the reference.
 """
@@ -20,6 +21,7 @@ _FAMILY_MODULES = {
     "dense": "repro_torch.models.transformer",
     "vlm-dense": "repro_torch.models.transformer",  # frontend stubbed
     "ssm": "repro_torch.models.ssm",
+    "hybrid": "repro_torch.models.griffin",
 }
 
 

@@ -28,6 +28,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_decode_step
 from repro_torch.models import layers as nn
@@ -151,10 +152,12 @@ def forward(params, tokens, cfg: ModelConfig):
     return nn.unembed(x, params["unembed"])
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device: DeviceLike = None):
     """O(1) decode state: conv tail + SSD state, stacked over layers, and
-    the per-row position vector."""
+    the per-row position vector, on ``device`` (default ``cuda``)."""
     d_inner, h, conv_ch = _dims(cfg)
+    device = resolve_device(device)
     return {
         "conv": torch.zeros((cfg.n_layers, batch, cfg.d_conv - 1, conv_ch),
                             dtype=cfg.compute_dtype, device=device),

@@ -31,6 +31,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.quant import recip32
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as nn
@@ -154,18 +155,46 @@ def _prefill_layer(xc, p, kind: str, cfg: ModelConfig, positions, *,
 
 
 # ---------------------------------------------------------------------------
+# Dense (per-slot) KV cache writes: the hybrid family's ring layers
+# ---------------------------------------------------------------------------
+
+
+def _as_positions(pos, batch: int) -> torch.Tensor:
+    """Normalize a scalar or [B] ``len`` entry to a per-row position vector."""
+    return torch.as_tensor(pos, dtype=torch.int32).expand(batch)
+
+
+def _cache_write(c, k_new, v_new, pos, kind: str, cfg: ModelConfig):
+    """Write one token's k/v ([B, Hkv, 1, hd]) at per-row position ``pos``
+    into ``c["k"]``/``c["v"]`` ([B, Hkv, S_len, hd]), in place: a local
+    ("L") layer's cache is a ring (slot ``pos % S_len``), a global layer's
+    is clamped at its last row. Rows may sit at different positions (the
+    continuous-batching case), so the write is a per-row scatter."""
+    b, _, s_len, _ = c["k"].shape
+    pos = _as_positions(pos, b).long()
+    idx = pos % s_len if kind == "L" else torch.clamp(pos, max=s_len - 1)
+    rows = torch.arange(b, device=pos.device)
+    c["k"][rows, :, idx] = k_new[:, :, 0].to(c["k"].dtype)
+    c["v"][rows, :, idx] = v_new[:, :, 0].to(c["v"].dtype)
+    return c
+
+
+# ---------------------------------------------------------------------------
 # Paged KV cache + decode (block-pool serving layout)
 # ---------------------------------------------------------------------------
 
 
 def init_paged_cache(cfg: ModelConfig, slots: int, layout, *,
-                     quantized: Optional[bool] = None, device=None):
-    """Block-pool KV cache: per pattern-position stacks of shape
-    ``[n_stack, num_blocks, Hkv, block_len, hd]`` shared by all ``slots``
-    decode rows, plus the per-row position vector. Int8 pools
-    (``quantized``, default ``cfg.serve_quant``) carry per-block scale
-    vectors ``kscale``/``vscale`` ([n_stack, num_blocks] f32, filled with
-    the static ``attn.KV_SCALE`` calibration)."""
+                     quantized: Optional[bool] = None,
+                     device: DeviceLike = None):
+    """Block-pool KV cache on ``device`` (default ``cuda``): per
+    pattern-position stacks of shape ``[n_stack, num_blocks, Hkv,
+    block_len, hd]`` shared by all ``slots`` decode rows, plus the per-row
+    position vector. Int8 pools (``quantized``, default
+    ``cfg.serve_quant``) carry per-block scale vectors ``kscale``/``vscale``
+    ([n_stack, num_blocks] f32, filled with the static ``attn.KV_SCALE``
+    calibration)."""
+    device = resolve_device(device)
     if getattr(layout, "window", None) is not None:
         raise NotImplementedError(
             "ring-block (sliding-window) pools are not ported yet")

@@ -20,10 +20,10 @@ selected by ``EngineConfig.backend``:
     speculative decoding (small-q verify, commit and block rollback).
 
 Which families serve on which backend is ``registry.Arch.serve_backends``:
-in the port the ``ssm`` family serves on ``slot``/``arena`` and the dense
-family on ``paged``. Not ported yet (refused with ``NotImplementedError``):
-the dense family on ``slot``/``arena``, ring blocks for sliding-window
-layers, chunked prefill and mesh sharding.
+in the port the ``ssm`` and ``hybrid`` families serve on ``slot``/``arena``
+and the dense family on ``paged``. Not ported yet (refused with
+``NotImplementedError``): the dense family on ``slot``/``arena``, ring
+blocks for sliding-window layers, chunked prefill and mesh sharding.
 """
 
 from __future__ import annotations
@@ -185,7 +185,8 @@ class ArenaBackend(_BackendBase):
     iteration, empty slots included (their rows are ignored host-side and
     overwritten by the next admission); per-slot sampling on the device.
     Admission prefills the exact continuation as a batch-1 cache and
-    splices it into the slot (``cache_insert``, in place). W8A8 serving
+    splices it into the slot (``cache_insert``, in place; the cache may
+    be a nested tree, as the hybrid family's is). W8A8 serving
     parameters exist only for the dense families, which do not serve here
     yet, so the decode takes the float parameters. No ported
     family takes right-padded prompts here, so there is no bucketed

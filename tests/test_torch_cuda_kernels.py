@@ -16,7 +16,9 @@ at ``Q = 1``, and row 0 of any ``Q``, are bit-equal to the decode kernels
 at the same lengths. The SSD chunked scan is allclose with
 ``ssd_scan_chunked_ref`` over the zero-padded sequence (float32; only the
 order of additions differs: ``rtol = 1e-4``, ``atol = 1e-4 · max|y|``), its
-final state likewise.
+final state likewise. The RG-LRU scan is allclose with ``rglru_ref``
+(float32 output: ``rtol = 1e-5``, ``atol = 1e-5 · max|h|``; bf16 output: at
+most one bf16 ulp apart).
 """
 
 import numpy as np
@@ -32,6 +34,8 @@ from repro_torch.kernels.paged_attention.ref import (
     paged_attention_int8_dequant_ref, paged_attention_ref,
     paged_attention_verify_int8_dequant_ref, paged_attention_verify_ref,
 )
+from repro_torch.kernels.rglru import ops as rglru_ops
+from repro_torch.kernels.rglru.ref import rglru_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import (
     pad_to_chunks, ssd_scan_chunked_ref,
@@ -390,6 +394,103 @@ def test_mamba_serving_on_card_agrees_with_cpu_and_slot(cuda_device):
         outs[device, backend] = [eng.request(h).output for h in hs]
     # each admission prefill runs the kernel once per layer
     assert ssd_ops.KERNEL.launches - before >= 2 * len(prompts) * cfg.n_layers
+    assert outs["cuda", "slot"] == outs["cuda", "arena"]
+    same = sum(a == b for x, y in zip(outs["cuda", "arena"],
+                                      outs["cpu", "arena"])
+               for a, b in zip(x, y))
+    assert same >= 0.9 * 72, outs
+
+
+def _rglru_case(dev, b, s, d=4096, *, u_dtype=torch.bfloat16, seed=0):
+    """recurrentgemma-9b's width (D = lru_width = 4096) by default; log_a as
+    the model makes it, −8·softplus(Λ)·r with r a sigmoid."""
+    gen = torch.Generator(device=dev).manual_seed(seed + s + b)
+    lam = torch.randn((d,), generator=gen, device=dev)
+    r = torch.sigmoid(torch.randn((b, s, d), generator=gen, device=dev))
+    log_a = -8.0 * torch.logaddexp(lam, torch.zeros_like(lam)) * r
+    u = torch.randn((b, s, d), generator=gen, device=dev).to(u_dtype)
+    return log_a, u
+
+
+def rglru_close(got, want):
+    """float32: rtol 1e-5, atol 1e-5·max|want|; bf16: one ulp at most."""
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+        return
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    bad = int(((g - w).abs() > ulp).sum())
+    assert bad == 0, f"{bad} outputs more than one bf16 ulp apart"
+
+
+@pytest.mark.parametrize("u_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,s", [(1, 1), (1, 5), (1, 255), (1, 256),
+                                 (1, 257), (1, 512), (1, 2048), (1, 2300),
+                                 (3, 300)])
+def test_rglru_matches_plain_version(cuda_device, b, s, u_dtype):
+    """Kernel B9 at recurrentgemma-9b's width: lengths around the TPU
+    kernel's 256-row chunk and the prefetch depth, the model's long
+    prompts, and B = 3."""
+    log_a, u = _rglru_case(cuda_device, b, s, u_dtype=u_dtype)
+    before = rglru_ops.KERNEL.launches
+    h = rglru_ops.rglru_cuda(log_a, u)
+    torch.cuda.synchronize()
+    assert rglru_ops.KERNEL.launches == before + 1
+    assert h.dtype == u_dtype and torch.isfinite(h.float()).all()
+    rglru_close(h, rglru_ref(log_a, u))
+
+
+def test_rglru_op_dispatches_by_device(cuda_device):
+    """The public op launches the kernel for CUDA tensors and agrees with
+    the plain version on the CPU; the wrapper refuses what the kernel does
+    not take."""
+    log_a, u = _rglru_case(cuda_device, 2, 40, d=96)
+    before = rglru_ops.KERNEL.launches
+    h = rglru_ops.rglru(log_a, u)
+    assert rglru_ops.KERNEL.launches == before + 1
+    rglru_close(h.cpu(), rglru_ops.rglru(log_a.cpu(), u.cpu()))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        rglru_ops.rglru_cuda(log_a, u.half())
+    with pytest.raises(ValueError, match="float32"):
+        rglru_ops.rglru_cuda(log_a.bfloat16(), u)
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_ops.rglru_cuda(log_a, u.transpose(1, 2).contiguous()
+                             .transpose(1, 2))
+
+
+def test_hybrid_serving_on_card_agrees_with_cpu_and_slot(cuda_device):
+    """recurrentgemma-9b-smoke (float32, window 16: the rings wrap) through
+    the arena on the card and on the CPU: the same greedy tokens up to
+    near-ties; on the card, the slot backend gives the arena's tokens."""
+    import dataclasses
+
+    from repro_torch import bridge, configs
+    from repro_torch.models import registry
+    from repro_torch.serve import EngineConfig, LLMEngine
+
+    cfg = dataclasses.replace(configs.smoke_config("recurrentgemma-9b"),
+                              dtype="float32")
+    arch = registry.build(cfg)
+    npp = bridge.numpy_params(arch.schema(), seed=0)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(3, 41)))
+               .astype(np.int32) for _ in range(6)]
+    outs = {}
+    before = rglru_ops.KERNEL.launches
+    for device, backend in (("cuda", "arena"), ("cuda", "slot"),
+                            ("cpu", "arena")):
+        eng = LLMEngine(arch, bridge.params_from_numpy(npp, device),
+                        EngineConfig(backend=backend, slots=4, max_len=64,
+                                     admit_window=2), device=device)
+        hs = [eng.add_request(p, max_new_tokens=12) for p in prompts]
+        eng.run_until_drained()
+        outs[device, backend] = [eng.request(h).output for h in hs]
+    # each admission prefill runs the kernel once per recurrent layer
+    n_rec = cfg.layer_layout()[1] * cfg.pattern.count("R")
+    assert rglru_ops.KERNEL.launches - before >= 2 * len(prompts) * n_rec
     assert outs["cuda", "slot"] == outs["cuda", "arena"]
     same = sum(a == b for x, y in zip(outs["cuda", "arena"],
                                       outs["cpu", "arena"])

@@ -15,6 +15,8 @@ import repro_torch
 from repro_torch import bridge
 from repro_torch import configs as tconfigs
 from repro_torch.models import registry
+from repro_torch.models.cache import PagedLayout
+from repro_torch.models.schema import leaves
 from repro_torch.serve import EngineConfig, LLMEngine
 
 from subproc import run_script
@@ -36,7 +38,9 @@ def test_port_imports_neither_jax_nor_the_reference_package():
             "repro_torch.kernels.paged_attention.ref",
             "repro_torch.models.cache", "repro_torch.models.transformer",
             "repro_torch.models.ssm", "repro_torch.kernels.ssd_scan.ops",
-            "repro_torch.kernels.ssd_scan.ref", "repro_torch.bridge"
+            "repro_torch.kernels.ssd_scan.ref", "repro_torch.bridge",
+            "repro_torch.models.griffin", "repro_torch.models.attention",
+            "repro_torch.kernels.rglru.ops", "repro_torch.kernels.rglru.ref",
             } <= set(mods)
     script = (
         "import importlib, sys\n"
@@ -69,7 +73,8 @@ def test_kernels_are_registered_with_their_tpu_counterparts():
     by_name = {k.name: k for k in all_kernels()}
     assert set(by_name) == {"int8_gemm", "paged_attention",
                             "paged_attention_int8", "paged_attention_verify",
-                            "paged_attention_verify_int8", "ssd_scan"}
+                            "paged_attention_verify_int8", "ssd_scan",
+                            "rglru"}
     for k in by_name.values():
         assert k.library.source.exists()
         assert k.replaces.startswith("src/repro/kernels/")
@@ -87,3 +92,20 @@ def test_arena_entry_point_raises_without_cuda_unless_cpu_is_asked(
     eng = LLMEngine(arch, params, EngineConfig(backend="arena"), device="cpu")
     assert eng.cache["ssd"].device.type == "cpu"
     assert eng.cache["ssd"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("name,make", [
+    ("mamba2-2.7b", lambda arch: arch.init_cache(2, 32)),
+    ("recurrentgemma-9b", lambda arch: arch.init_cache(2, 32)),
+    ("glm4-9b", lambda arch: arch.init_paged_cache(
+        2, PagedLayout(block_len=8, num_blocks=5, max_len=32))),
+])
+def test_cache_constructors_default_to_cuda(name, make):
+    """A cache built without ``device`` lies on the card; with no GPU
+    visible, the constructor raises instead of allocating on the CPU."""
+    arch = registry.build(tconfigs.smoke_config(name))
+    if torch.cuda.is_available():
+        assert all(t.device.type == "cuda" for t in leaves(make(arch)))
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make(arch)
