@@ -16,7 +16,11 @@ Phases (each exits non-zero on failure; none is caught):
    at mamba2-2.7b's widths (S = 1, 5, 129, 512, 2048, with and without the
    state, and a G = 2 case) allclose, and the RG-LRU scan at
    recurrentgemma-9b's width (D = 4096; S = 1 to 2300 and a B = 3 case,
-   bf16 and f32 inputs) allclose; time kernel, plain version, a library
+   bf16 and f32 inputs) allclose, the ITA fused attention at glm4-9b's
+   prefill width (and a GQA-free case, 64- and 125-key tiles, DINOv2-S's
+   137-row tiles, the saturated causal corner) bit-exact, and the ITA
+   integer softmax at DINOv2-S's per-layer logits (and ragged rows and
+   columns) bit-exact; time kernel, plain version, a library
    yardstick where one PyTorch call computes the same function (timed here,
    never called by the port) and the card's bound;
 3. serve full-width glm4-9b (random weights from a seeded generator, depth
@@ -38,7 +42,15 @@ Phases (each exits non-zero on failure; none is caught):
    with two prompts longer than the 2048-token window, so the ring caches
    wrap; the same checks as phase 4 (small input: recurrentgemma-9b-smoke,
    window 16), and B9 launched once per recurrent layer and admission
-   prefill.
+   prefill;
+6. the ITA integer path at full width: ``int8_attention`` once per
+   attention layer of MobileBERT, the Whisper-Tiny encoder, DINOv2-S and a
+   2048-token glm4-9b prompt (bf16 inputs), and ``int_softmax`` once per
+   layer on the three paper networks' [H·S, S] int8 logits, the launch
+   counts set to 0 just before and read just after each network: B6
+   launched once per attention layer, B7 once per paper-network layer,
+   every output finite, and on a small input the card's ``int8_attention``
+   and ``int_softmax`` equal the CPU's plain path bit for bit.
 
 The last lines of stdout are a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -536,6 +548,142 @@ def check_rglru(torch, cfg, lengths, main_len):
         errs=errs, per_len_ms=per_len)
 
 
+def ita_inputs(torch, gen, b, hq, hkv, sq, skv, d, *, saturated=False):
+    """int8 q, k, v [B, H, S, D] on the card: unit normals quantized as
+    ``int8_attention`` quantizes them (q pre-scaled by 1/√d; scale 4/127),
+    or uniform int8 (every logit saturates)."""
+    shapes = [(b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)]
+    if saturated:
+        return [torch.randint(-127, 128, sh, generator=gen, device="cuda",
+                              dtype=torch.int8) for sh in shapes]
+    xs = [torch.randn(sh, generator=gen, device="cuda") for sh in shapes]
+    xs[0] = xs[0] * d ** -0.5
+    return [torch.clamp(torch.round(x * (127 / 4.0)), -127, 127)
+            .to(torch.int8) for x in xs]
+
+
+def check_ita_attention(torch, cfg, flush):
+    """Kernel B6 at glm4-9b's prefill width (B = 1, 32 query / 2 kv heads,
+    S = 2048, D = 128, causal, 128-row tiles) and six more cases, each
+    bit-exact against its plain version on the card."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ita_attention import ops
+    from repro_torch.kernels.ita_attention.ref import (
+        ita_attention_gqa_ref as ita_plain,
+    )
+
+    sc = 4.0 / 127
+    real = dict(qk_scale=sc * sc, v_scale=sc, out_scale=sc)
+    hq, hkv, hd, s = cfg.n_heads, cfg.n_kv_heads, cfg.hd, 2048
+    cases = [  # name, (B, Hq, Hkv, S, D), tiles, causal, saturated, scales
+        ("glm4-9b prefill", (1, hq, hkv, s, hd), 128, 128, True, False, real),
+        ("no GQA", (2, 8, 8, 512, 64), 128, 128, True, False, real),
+        ("block_kv 64", (1, hq, hkv, 1024, hd), 128, 64, True, False, real),
+        ("block_kv 125", (1, 6, 6, 1000, 64), 125, 125, True, False, real),
+        ("DINOv2-S tiles", (1, 6, 6, 1370, 64), 137, 137, False, False,
+         real),
+        ("saturated", (1, 4, 2, 256, 48), 64, 32, True, True,
+         dict(qk_scale=1e-3, v_scale=0.03, out_scale=0.02)),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    n_checked = 0
+    main = None
+    for name, (b, nq, nkv, sl, d), bq, bkv, causal, sat, scales in cases:
+        q, k, v = ita_inputs(torch, gen, b, nq, nkv, sl, sl, d,
+                             saturated=sat)
+        kw = dict(scales, causal=causal, block_q=bq, block_kv=bkv)
+        y = ops.ita_attention_cuda(q, k, v, **kw)
+        want = ita_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(y, want):
+            raise AssertionError(f"ita_attention {name}: "
+                                 f"{int((y != want).sum())} outputs differ")
+        n_checked += 1
+        if main is None:
+            main = (q, k, v, kw)
+    # the saturated causal corner: every logit at the exponent floor, so
+    # the skipped tiles above the diagonal would change the result
+    sl, d = 128, 64
+    q = torch.full((1, 1, sl, d), 127, dtype=torch.int8, device="cuda")
+    k = torch.full((1, 1, sl, d), -127, dtype=torch.int8, device="cuda")
+    v = ita_inputs(torch, gen, 1, 1, 1, sl, sl, d, saturated=True)[2]
+    for amax in (1000.0, 10.0):
+        kw = dict(qk_scale=1.0, v_scale=1.0, out_scale=1.0, causal=True,
+                  logit_amax=amax, block_q=64, block_kv=64)
+        if not torch.equal(ops.ita_attention_cuda(q, k, v, **kw),
+                           ita_plain(q, k, v, **kw)):
+            raise AssertionError(f"ita_attention floor corner "
+                                 f"(logit_amax {amax}) differs")
+        n_checked += 1
+
+    q, k, v, kw = main
+    kernel_ms = timed(torch, lambda: ops.ita_attention_cuda(q, k, v, **kw),
+                      20, flush)
+    plain_ms = timed(torch, lambda: ita_plain(q, k, v, **kw), 3, flush)
+    # a different function, for context only: float SDPA at the same shape
+    g = hq // hkv
+    qb, kb, vb = (x.to(torch.bfloat16) for x in
+                  (q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)))
+    sdpa_ms = timed(torch, lambda: F.scaled_dot_product_attention(
+        qb, kb, vb, is_causal=True), 20, flush)
+    # work the mask keeps: row r attends min(r + 1, S) keys when causal
+    pairs = s * (s + 1) // 2
+    b_ms, b_by = bound(q.numel() * 2 + k.numel() * 2,
+                       4 * hq * hd * pairs, "int8")
+    return dict(
+        name="ita_attention", route="cuda",
+        source="src/repro_torch/kernels/ita_attention/csrc/ita_attention.cu",
+        replaces=ops.KERNEL.replaces.split()[0],
+        max_abs_err=0.0, ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None,
+        shape=f"B=1 Hq={hq} Hkv={hkv} S={s} D={hd} causal, 128-row tiles",
+        cases_checked=n_checked, sdpa_ms=sdpa_ms)
+
+
+def check_int_softmax(torch, flush):
+    """Kernel B7 at DINOv2-S's per-layer logits ([6·1370, 1370]) and at
+    ragged rows and columns, bit-exact against ``int_softmax_ref``."""
+    from repro_torch.kernels.int_softmax import ops
+    from repro_torch.kernels.int_softmax.ref import int_softmax_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    s_logit = 10.0 / 127
+
+    def logits(r, c, scale):
+        x = torch.randn((r, c), generator=gen, device="cuda") * 3.0
+        return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+
+    n_checked = 0
+    for r, c, scale in ((6 * 1370, 1370, s_logit), (1001, 999, 0.06),
+                        (3, 1, s_logit), (5, 4099, 60.0), (1, 100003, 0.06),
+                        (6 * 1500, 1500, s_logit)):
+        x = logits(r, c, scale)
+        y = ops.int_softmax_cuda(x, logit_scale=scale)
+        want = int_softmax_ref(x, logit_scale=scale)
+        torch.cuda.synchronize()
+        if not torch.equal(y, want):
+            raise AssertionError(f"int_softmax [{r}, {c}] scale {scale}: "
+                                 f"{int((y != want).sum())} values differ")
+        n_checked += 1
+    x = logits(6 * 1370, 1370, s_logit)
+    kernel_ms = timed(torch, lambda: ops.int_softmax_cuda(
+        x, logit_scale=s_logit), 50, flush)
+    plain_ms = timed(torch, lambda: int_softmax_ref(x, logit_scale=s_logit),
+                     10, flush)
+    # bytes: the int8 logits in, the uint8 probabilities out; about 14
+    # integer operations per element (max, exponent, exp2, sum, divide)
+    b_ms, b_by = bound(2 * x.numel(), 14 * x.numel(), "int8")
+    return dict(
+        name="int_softmax", route="cuda",
+        source="src/repro_torch/kernels/int_softmax/csrc/int_softmax.cu",
+        replaces=ops.KERNEL.replaces.split()[0],
+        max_abs_err=0.0, ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None,
+        shape="[6x1370, 1370] int8 logits (DINOv2-S, one layer)",
+        cases_checked=n_checked)
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the port's main path at full width
 # ---------------------------------------------------------------------------
@@ -814,6 +962,106 @@ def small_input_arena(torch, name):
     return same, total
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the ITA integer path at full width
+# ---------------------------------------------------------------------------
+
+
+def ita_widths(cfg):
+    """(name, layers, query heads, kv heads, S, D, causal, tile, paper
+    network): the three networks the repo's Table II models
+    (``src/repro/core/soc.py``), whose lengths need their own tiles, and a
+    2048-token glm4-9b prompt."""
+    return [("MobileBERT", 24, 4, 4, 128, 128, False, 128, True),
+            ("Whisper-Tiny encoder", 4, 6, 6, 1500, 64, False, 125, True),
+            ("DINOv2-S", 12, 6, 6, 1370, 64, False, 137, True),
+            ("glm4-9b prompt", cfg.n_layers, cfg.n_heads, cfg.n_kv_heads,
+             2048, cfg.hd, True, 128, False)]
+
+
+def small_input_ita(torch):
+    """On a small input the card's ``int8_attention`` (bf16 and f32, GQA,
+    causal and not) and ``int_softmax`` equal the CPU's plain path bit for
+    bit."""
+    from repro_torch.kernels.int_softmax.ops import int_softmax
+    from repro_torch.models.attention import int8_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    n = 0
+    for dtype, causal, s, blk in ((torch.bfloat16, True, 256, 64),
+                                  (torch.float32, False, 250, 125)):
+        q, k, v = (torch.randn((2, h, s, 64), generator=gen, device="cuda")
+                   .to(dtype) for h in (4, 2, 2))
+        kw = dict(causal=causal, block_q=blk, block_kv=blk)
+        got = int8_attention(q, k, v, **kw).cpu()
+        want = int8_attention(q.cpu(), k.cpu(), v.cpu(), **kw)
+        if got.dtype != dtype or not torch.equal(got, want):
+            raise AssertionError(f"int8_attention {dtype} causal={causal}: "
+                                 f"card and CPU differ")
+        n += got.numel()
+    x = torch.randint(-127, 128, (3, 37, 129), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    if not torch.equal(int_softmax(x, logit_scale=0.06).cpu(),
+                       int_softmax(x.cpu(), logit_scale=0.06)):
+        raise AssertionError("int_softmax: card and CPU differ")
+    return n + x.numel()
+
+
+def ita_path(torch, cfg):
+    """Each width's network pass through the public entry points, its
+    launch counts set to 0 just before and read just after; inputs are
+    drawn beforehand (set-up, outside the timed pass)."""
+    from repro_torch.kernels.build import all_kernels
+    from repro_torch.kernels.int_softmax.ops import int_softmax
+    from repro_torch.models.attention import LOGIT_AMAX, int8_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    s_logit = LOGIT_AMAX / 127
+    runs = []
+    for name, layers, hq, hkv, s, d, causal, blk, paper in ita_widths(cfg):
+        qkv = [[torch.randn((1, h, s, d), generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for h in (hq, hkv, hkv)]
+               for _ in range(layers)]
+        logits = [torch.clamp(torch.round(
+            torch.randn((hq * s, s), generator=gen, device="cuda") * 3.0
+            / s_logit), -127, 127).to(torch.int8)
+            for _ in range(layers if paper else 0)]
+        for k in all_kernels():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [int8_attention(q, k, v, causal=causal, block_q=blk,
+                               block_kv=blk) for q, k, v in qkv]
+        torch.cuda.synchronize()
+        attn_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        probs = [int_softmax(x, logit_scale=s_logit) for x in logits]
+        torch.cuda.synchronize()
+        smax_ms = (time.perf_counter() - t0) * 1e3
+        counts = {k.name: k.launches for k in all_kernels()}
+        for y, (q, _, _) in zip(outs, qkv):
+            if y.shape != q.shape or y.dtype != torch.bfloat16 \
+                    or not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"{name}: int8_attention output "
+                                     f"{tuple(y.shape)} {y.dtype} not finite")
+        for p, x in zip(probs, logits):
+            if p.shape != x.shape or p.dtype != torch.uint8:
+                raise AssertionError(f"{name}: int_softmax output "
+                                     f"{tuple(p.shape)} {p.dtype}")
+        if counts["ita_attention"] != layers \
+                or counts["int_softmax"] != len(logits):
+            raise AssertionError(f"{name}: launches {counts} for {layers} "
+                                 f"layers")
+        runs.append(dict(name=name, layers=layers, attn_ms=attn_ms,
+                         smax_ms=smax_ms if paper else None,
+                         shape=f"{hq}/{hkv} heads, S={s}, D={d}, "
+                               f"{'causal' if causal else 'bidirectional'}, "
+                               f"tiles {blk}",
+                         launches=counts))
+        del qkv, logits, outs, probs
+    return runs
+
+
 def main() -> None:
     try:
         import torch
@@ -861,7 +1109,9 @@ def main() -> None:
                             int8=True),
                check_ssd_scan(torch, mcfg, [1, 5, 129, 512, 2048], 512),
                check_rglru(torch, rcfg,
-                           [1, 5, 255, 256, 257, 512, 2048, 2300], 512)]
+                           [1, 5, 255, 256, 257, 512, 2048, 2300], 512),
+               check_ita_attention(torch, cfg, flush),
+               check_int_softmax(torch, flush)]
     del scratch
     for e in entries:
         lib = ("null" if e["library_ms"] is None
@@ -870,7 +1120,7 @@ def main() -> None:
               f"plain_ms={e['plain_ms']:.4f} bound_ms={e['bound_ms']:.4f} "
               f"({e['bound_by']}) library_ms={lib} "
               f"max_abs_err={e['max_abs_err']} [{e['shape']}]", flush=True)
-    ssd, lru = entries[-2:]
+    ssd, lru, ita, smax = entries[-4:]
     print(f"kernel ssd_scan max |err| per case: {json.dumps(ssd['errs'])}; "
           f"kernel ms per S (with state): "
           f"{json.dumps({s: round(t, 4) for s, t in ssd['per_len_ms'].items()})}",
@@ -878,6 +1128,12 @@ def main() -> None:
     print(f"kernel rglru max |err| per case: {json.dumps(lru['errs'])}; "
           f"kernel ms per S (B=1, bf16): "
           f"{json.dumps({s: round(t, 4) for s, t in lru['per_len_ms'].items()})}",
+          flush=True)
+    print(f"kernel ita_attention: {ita['cases_checked']} cases bit-exact; "
+          f"for context, a different function (float SDPA, bf16, causal, "
+          f"kv heads expanded) at the same shape: {ita['sdpa_ms']:.4f} ms",
+          flush=True)
+    print(f"kernel int_softmax: {smax['cases_checked']} cases bit-exact",
           flush=True)
     gemm = entries[0]
     print(f"kernel int8_gemm at the verify pass's M={gemm['verify_rows']}: "
@@ -1039,6 +1295,20 @@ def main() -> None:
           f"{json.dumps(prof['top'])}", flush=True)
     del rparams, r
     torch.cuda.empty_cache()
+
+    # -- phase 6: the ITA integer path at full width ------------------------
+    n_small = small_input_ita(torch)
+    print(f"small input ITA: int8_attention and int_softmax card == CPU bit "
+          f"for bit ({n_small} values)", flush=True)
+    main_counts["ita_attention"] = main_counts["int_softmax"] = 0
+    for r in ita_path(torch, cfg):
+        smax = ("" if r["smax_ms"] is None else
+                f", {r['layers']} x int_softmax {r['smax_ms']:.2f} ms")
+        print(f"ita {r['name']} ({r['shape']}): {r['layers']} x "
+              f"int8_attention {r['attn_ms']:.2f} ms per pass{smax}; "
+              f"kernels={json.dumps(r['launches'])}", flush=True)
+        main_counts["ita_attention"] += r["launches"]["ita_attention"]
+        main_counts["int_softmax"] += r["launches"]["int_softmax"]
 
     for e in entries:
         e["launches"] = main_counts[e["name"]]

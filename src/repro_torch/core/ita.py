@@ -1,18 +1,161 @@
-"""Integer GELU / ReLU — the per-PE activation unit of CHIMERA's TAC.
+"""Integer-only softmax and GELU — the arithmetic of CHIMERA's TAC engines.
 
-Port of the activation half of ``repro.core.ita`` (I-BERT-style integer
-erf/GELU in int32 arithmetic). These are the int8 GEMM epilogue's
-activations; ``gelu_constants`` folds every float-derived constant into
-Python ints once, which is how the CUDA epilogue receives them.
+Port of ``repro.core.ita``: the softmax engine (ITA's base-2 integer
+softmax over int8 logits, two-pass and streaming) and the per-PE
+activation unit (I-BERT-style integer erf/GELU). Everything is int32 with
+the reference's semantics (XLA's: an arithmetic right shift by a count
+outside [0, 31] gives the sign).
+
+Base-2 softmax: ``softmax(x)_i = 2^((x_i − max)·α) / Σ_j 2^((x_j − max)·α)``
+with ``α = s_logit · log2(e)`` encoded as ``(mult, rshift)``. For an int8
+logit q::
+
+    t  = (q − max) · mult  >>  rshift      # Q(FB) fixed point, t ≤ 0
+    ip = t >> FB                           # integer part
+    fp = t − ip·2^FB                       # fractional part ∈ [0, 2^FB)
+    2^(t/2^FB) ≈ (2^FB + fp) >> (−ip)      # linear mantissa: 2^f ≈ 1+f
+
+The streaming form keeps the running maximum as an integer block exponent,
+so every rescale of a partial sum is an exact arithmetic shift (what the
+fused attention kernel, ``kernels/ita_attention``, runs per kv tile).
+
+``gelu_constants`` folds every float-derived constant of the activation
+unit into Python ints once, which is how the int8 GEMM's CUDA epilogue
+receives them.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 from typing import Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core.device import DeviceLike, resolve_device
+
+# Fixed-point fraction bits of the exponent domain.
+FB = 8
+ONE = 1 << FB
+LOG2E = math.log2(math.e)
+PROB_BITS = 8  # probabilities re-emitted as uint8 (0..255)
+PROB_MAX = (1 << PROB_BITS) - 1
+NEG_T = -(31 << FB)  # exponent-domain −∞: exp2_fixed gives exactly 0
+
+
+@functools.lru_cache(maxsize=None)
+def _alpha_fixed(logit_scale: float):
+    """Encode α = s·log2e as (mult, rshift) with mult ∈ [2⁶, 2¹⁴)."""
+    alpha = logit_scale * LOG2E
+    if alpha <= 0:
+        raise ValueError("logit_scale must be positive")
+    k = 0
+    while round(alpha * ONE * (1 << k)) < (1 << 6) and k < 24:
+        k += 1
+    mult = int(round(alpha * ONE * (1 << k)))
+    while mult >= (1 << 14):  # keep the int8·mult product within int32
+        mult >>= 1
+        k -= 1
+    return max(mult, 1), k
+
+
+@dataclasses.dataclass(frozen=True)
+class SoftmaxSpec:
+    """Static metadata tying the int8 logit scale to fixed-point constants."""
+
+    logit_scale: float  # scale of the int8 logits entering the engine
+
+    @property
+    def alpha_mult(self) -> int:
+        return _alpha_fixed(self.logit_scale)[0]
+
+    @property
+    def alpha_rshift(self) -> int:
+        return _alpha_fixed(self.logit_scale)[1]
+
+
+def sra_count(s: int) -> int:
+    """A static right-shift count as int32 hardware takes it: a count
+    outside [0, 31] (a negative ``alpha_rshift`` at logit scales ≥ 44)
+    shifts out everything but the sign, as XLA's does."""
+    return s if 0 <= s <= 31 else 31
+
+
+def to_exponent_domain(dlogits: torch.Tensor, spec: SoftmaxSpec) -> torch.Tensor:
+    """(q − max) int values → Q(FB) base-2 exponents t ≤ 0 (int32-safe)."""
+    t = dlogits.to(torch.int32) * spec.alpha_mult
+    t = t >> sra_count(spec.alpha_rshift)  # floor keeps t ≤ 0 conservative
+    return torch.clamp(t, min=NEG_T)
+
+
+def exp2_fixed(t: torch.Tensor) -> torch.Tensor:
+    """2^(t / 2^FB) in Q(FB), for t ≤ 0 (int32). Returns int32 in [0, 2^FB]."""
+    ip = t >> FB  # arithmetic shift → floor
+    fp = t - ip * ONE
+    mant = ONE + fp  # 2^f ≈ 1 + f, f ∈ [0,1)
+    return mant >> torch.clamp(-ip, 0, 31)
+
+
+def int_softmax(logits_q: torch.Tensor, spec: SoftmaxSpec, axis: int = -1):
+    """Two-pass integer softmax over int8 logits (the non-streaming oracle).
+
+    Returns ``(probs_u8, denom)``: uint8 probabilities with implicit scale
+    ``1/PROB_MAX`` and the int32 denominator (kept dim). int32 headroom:
+    e ≤ 2^FB per element, so rows of up to 2²² elements sum below 2³¹.
+    """
+    x = logits_q.to(torch.int32)
+    m = x.amax(dim=axis, keepdim=True)
+    e = exp2_fixed(to_exponent_domain(x - m, spec))
+    denom = e.sum(dim=axis, keepdim=True, dtype=torch.int32)
+    d = torch.clamp(denom, min=1)
+    probs = (e * PROB_MAX + (d >> 1)) // d  # round-half-up division
+    return probs.to(torch.uint8), denom
+
+
+def int_softmax_float_view(logits_q: torch.Tensor, spec: SoftmaxSpec,
+                           axis: int = -1) -> torch.Tensor:
+    """Integer softmax dequantized to float (for error measurement)."""
+    probs, _ = int_softmax(logits_q, spec, axis=axis)
+    return probs.to(torch.float32) / PROB_MAX
+
+
+def streaming_init(num_rows: int, device: DeviceLike = None):
+    """Running state ``(block_exp, denom)``, int32 [rows] each.
+
+    ``block_exp`` is the running maximum rounded up to an integer exponent;
+    it starts at −31 (not −∞), which a row with no valid key yet keeps.
+    """
+    dev = resolve_device(device)
+    return (torch.full((num_rows,), -31, dtype=torch.int32, device=dev),
+            torch.zeros((num_rows,), dtype=torch.int32, device=dev))
+
+
+def _block_exp(t_max: torch.Tensor) -> torch.Tensor:
+    """ceil(t/2^FB): smallest integer exponent ≥ a Q(FB) exponent value."""
+    return -((-t_max) >> FB)
+
+
+def streaming_tile_update(state, tile_t: torch.Tensor):
+    """Fold one tile of exponent-domain logits ``t`` into the running state.
+
+    ``tile_t``: int32 [rows, tile] — q·α in Q(FB), not max-subtracted.
+    Returns ``(new_state, e_tile, carry_shift)``: the tile's exponentials
+    relative to the new block exponent, and the exact right shift the
+    caller applies to any companion accumulator (partial AV sums).
+    """
+    be, denom = state
+    be_new = torch.maximum(be, _block_exp(tile_t.amax(dim=-1)))
+    sh = torch.clamp(be_new - be, 0, 31)
+    e = exp2_fixed(torch.clamp(tile_t - be_new[..., None] * ONE, min=NEG_T))
+    denom_new = (denom >> sh) + e.sum(dim=-1, dtype=torch.int32)
+    return (be_new, denom_new), e, sh
+
+
+# ---------------------------------------------------------------------------
+# Integer GELU / ReLU — the per-PE activation unit (I-BERT-style i-GELU)
+# ---------------------------------------------------------------------------
 
 _ERF_A = -0.2888
 _ERF_B = -1.769

@@ -137,6 +137,8 @@ def register(kernel: CudaKernel) -> CudaKernel:
 def all_kernels() -> List[CudaKernel]:
     """Every kernel of the port (importing the ops modules registers them)."""
     from repro_torch.kernels.int8_gemm import ops as _gemm  # noqa: F401
+    from repro_torch.kernels.int_softmax import ops as _smax  # noqa: F401
+    from repro_torch.kernels.ita_attention import ops as _ita  # noqa: F401
     from repro_torch.kernels.paged_attention import ops as _attn  # noqa: F401
     from repro_torch.kernels.rglru import ops as _rglru  # noqa: F401
     from repro_torch.kernels.ssd_scan import ops as _ssd  # noqa: F401

@@ -7,7 +7,9 @@ time, with causal, bidirectional and sliding-window masks and GQA head
 grouping. ``decode_attention`` is the one-token attention over a dense
 per-slot cache (the hybrid family's ring layers), plain PyTorch as the
 reference's is plain jnp. Decode attention over the block pool lives in
-``repro_torch.kernels.paged_attention``.
+``repro_torch.kernels.paged_attention``. ``int8_attention`` is the
+paper-faithful INT8 attention (float in and out, quantized inside) over the
+ITA fused kernel, ``repro_torch.kernels.ita_attention``.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from repro_torch.kernels.ita_attention.ops import ita_attention
 
 NEG_INF = -1e30
 
@@ -24,6 +28,8 @@ NEG_INF = -1e30
 ACT_SCALE = 4.0 / 127
 KV_SCALE = 4.0 / 127
 Q_SCALE = 4.0 / 127
+ATTN_OUT_SCALE = 4.0 / 127
+LOGIT_AMAX = 10.0
 
 
 def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -103,3 +109,45 @@ def decode_attention(
     p = softmax(logits)
     out = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
     return out.reshape(b, hq, 1, d).to(q.dtype)
+
+
+def _quantize_static(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """``clip(round(x / scale))`` to int8, rounding half to even, with a
+    true f32 divide: the reference runs ``int8_attention`` eagerly, so XLA
+    does not turn the divide into a multiply by the reciprocal. The divisor
+    is a tensor on ``x``'s device because PyTorch's CUDA divide by a Python
+    number multiplies by its reciprocal; ``full`` fills it on the device,
+    with no copy from the host."""
+    div = torch.full((), scale, dtype=torch.float32, device=x.device)
+    return torch.clamp(torch.round(x / div), -127, 127).to(torch.int8)
+
+
+def int8_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_scale: float = 4.0 / 127,   # static calibration: post-RoPE/rsqrt(d) q
+    k_scale: float = 4.0 / 127,
+    v_scale: float = 4.0 / 127,
+    out_scale: float = 4.0 / 127,
+    block_q: int = 128,
+    block_kv: int = 128,
+) -> torch.Tensor:
+    """Paper-faithful INT8 attention (float in/out; quantized inside).
+
+    Inputs are float [B, H, S, D] after RoPE (k and v may have fewer heads:
+    GQA); q is pre-scaled by 1/√d. Static scales come from calibration
+    (defaults cover ±4σ activations). ``block_q`` / ``block_kv`` are the ITA
+    kernel's tiles (the reference's 128 by default); a sequence length they
+    do not divide needs its own (1500 = 12 × 125, 1370 = 10 × 137).
+    """
+    d = q.shape[-1]
+    qs = q.to(torch.float32) * (d ** -0.5)
+    y8 = ita_attention(
+        _quantize_static(qs, q_scale),
+        _quantize_static(k.to(torch.float32), k_scale),
+        _quantize_static(v.to(torch.float32), v_scale),
+        qk_scale=q_scale * k_scale, v_scale=v_scale, out_scale=out_scale,
+        causal=causal, block_q=block_q, block_kv=block_kv,
+    )
+    return (y8.to(torch.float32) * out_scale).to(q.dtype)

@@ -18,7 +18,10 @@ at the same lengths. The SSD chunked scan is allclose with
 order of additions differs: ``rtol = 1e-4``, ``atol = 1e-4 · max|y|``), its
 final state likewise. The RG-LRU scan is allclose with ``rglru_ref``
 (float32 output: ``rtol = 1e-5``, ``atol = 1e-5 · max|h|``; bf16 output: at
-most one bf16 ulp apart).
+most one bf16 ulp apart). The ITA fused int8 attention is bit-exact with
+``ita_attention_ref`` (over kv heads repeated to the query heads) and the
+ITA integer softmax with ``int_softmax_ref``; ``int8_attention`` on the card
+equals it on the CPU bit for bit.
 """
 
 import numpy as np
@@ -29,6 +32,12 @@ from repro_torch.core import quant
 from repro_torch.kernels import build
 from repro_torch.kernels.int8_gemm import ops as gemm_ops
 from repro_torch.kernels.int8_gemm.ref import int8_gemm_ref
+from repro_torch.kernels.int_softmax import ops as smax_ops
+from repro_torch.kernels.int_softmax.ref import int_softmax_ref
+from repro_torch.kernels.ita_attention import ops as ita_ops
+from repro_torch.kernels.ita_attention.ref import (
+    ita_attention_gqa_ref as ita_plain,
+)
 from repro_torch.kernels.paged_attention import ops as attn_ops
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_int8_dequant_ref, paged_attention_ref,
@@ -496,3 +505,134 @@ def test_hybrid_serving_on_card_agrees_with_cpu_and_slot(cuda_device):
                                       outs["cpu", "arena"])
                for a, b in zip(x, y))
     assert same >= 0.9 * 72, outs
+
+
+ITA_SC = 4.0 / 127  # int8_attention's static scales
+
+
+def _ita_case(dev, b, hq, hkv, sq, skv, d, *, seed=0, saturated=False):
+    """int8 q, k, v [B, H, S, D]: quantized unit normals as int8_attention
+    makes them, or uniform int8 (the logits saturate)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shapes = [(b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)]
+    if saturated:
+        return [torch.randint(-127, 128, sh, generator=g, device=dev,
+                              dtype=torch.int8) for sh in shapes]
+    xs = [torch.randn(sh, generator=g, device=dev) for sh in shapes]
+    xs[0] = xs[0] * d ** -0.5
+    return [torch.clamp(torch.round(x / ITA_SC), -127, 127).to(torch.int8)
+            for x in xs]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,bq,bkv,causal,sat", [
+    (1, 32, 2, 2048, 128, 128, 128, True, False),   # glm4-9b prefill
+    (1, 32, 2, 512, 128, 128, 128, False, False),
+    (2, 8, 8, 512, 64, 128, 64, True, False),       # no GQA
+    (1, 6, 6, 1000, 64, 125, 125, True, False),     # block_kv 125
+    (1, 6, 6, 1370, 64, 137, 137, False, False),    # DINOv2-S
+    (1, 6, 6, 1500, 64, 125, 125, False, False),    # Whisper-Tiny
+    (1, 4, 2, 256, 48, 64, 32, True, True),         # saturated, q ≠ kv tile
+    (1, 4, 1, 100, 20, 25, 20, True, True),         # D % 4 ≠ 0
+    (1, 2, 2, 256, 256, 64, 256, True, False),      # the largest tile
+])
+def test_ita_attention_bit_exact(cuda_device, b, hq, hkv, s, d, bq, bkv,
+                                 causal, sat):
+    q, k, v = _ita_case(cuda_device, b, hq, hkv, s, s, d, seed=s + d,
+                        saturated=sat)
+    kw = dict(qk_scale=ITA_SC * ITA_SC if not sat else 1e-3,
+              v_scale=ITA_SC if not sat else 0.03,
+              out_scale=0.9 * ITA_SC if not sat else 0.02, causal=causal,
+              block_q=bq, block_kv=bkv)
+    before = ita_ops.KERNEL.launches
+    y = ita_ops.ita_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ita_ops.KERNEL.launches == before + 1
+    want = ita_plain(q, k, v, **kw)
+    assert torch.equal(y, want), int((y != want).sum())
+
+
+def test_ita_attention_causal_floor_corner(cuda_device):
+    """q ≡ 127, k ≡ −127 at logit_amax = 1000 saturate every logit at the
+    exponent floor; tiles above the diagonal are skipped per logical q tile
+    (64 rows), as the TPU kernel skips them."""
+    s, d = 128, 64
+    q = torch.full((1, 1, s, d), 127, dtype=torch.int8, device=cuda_device)
+    k = torch.full((1, 1, s, d), -127, dtype=torch.int8, device=cuda_device)
+    v = _ita_case(cuda_device, 1, 1, 1, s, s, d, saturated=True)[2]
+    for amax in (1000.0, 10.0):
+        kw = dict(qk_scale=1.0, v_scale=1.0, out_scale=1.0, causal=True,
+                  logit_amax=amax, block_q=64, block_kv=64)
+        y = ita_ops.ita_attention_cuda(q, k, v, **kw)
+        assert torch.equal(y, ita_plain(q, k, v, **kw))
+
+
+def test_ita_attention_op_dispatches_by_device(cuda_device):
+    """The public op launches the kernel for CUDA tensors and agrees with
+    the CPU's plain version bit for bit; the wrapper refuses what the
+    kernel does not take."""
+    q, k, v = _ita_case(cuda_device, 1, 4, 2, 256, 256, 32)
+    kw = dict(qk_scale=ITA_SC * ITA_SC, v_scale=ITA_SC, out_scale=ITA_SC,
+              causal=True, block_kv=64)
+    before = ita_ops.KERNEL.launches
+    y = ita_ops.ita_attention(q, k, v, **kw)
+    assert ita_ops.KERNEL.launches == before + 1
+    assert torch.equal(y.cpu(), ita_ops.ita_attention(q.cpu(), k.cpu(),
+                                                      v.cpu(), **kw))
+    with pytest.raises(ValueError, match="up to 256"):
+        ita_ops.ita_attention_cuda(*_ita_case(cuda_device, 1, 2, 2, 512, 512,
+                                              32), **dict(kw, block_kv=512))
+    with pytest.raises(ValueError, match="not divisible"):
+        ita_ops.ita_attention(q, k, v, **dict(kw, block_kv=96))
+    with pytest.raises(ValueError, match="contiguous"):
+        ita_ops.ita_attention_cuda(q.transpose(2, 3).contiguous()
+                                   .transpose(2, 3), k, v, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_int8_attention_on_card_equals_cpu(cuda_device, dtype):
+    from repro_torch.models.attention import int8_attention
+
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v = (torch.randn((2, h, 256, 64), generator=g, device=cuda_device
+                           ).to(dtype) for h in (4, 2, 2))
+    before = ita_ops.KERNEL.launches
+    y = int8_attention(q, k, v, causal=True)
+    assert ita_ops.KERNEL.launches == before + 1
+    want = int8_attention(q.cpu(), k.cpu(), v.cpu(), causal=True)
+    assert y.dtype == dtype and torch.equal(y.cpu(), want)
+
+
+@pytest.mark.parametrize("r,c", [(6 * 1370, 1370), (1001, 999), (3, 1),
+                                 (5, 4099), (1, 100003), (256, 128)])
+@pytest.mark.parametrize("scale", [0.06, 10.0 / 127, 60.0])
+def test_int_softmax_bit_exact(cuda_device, r, c, scale):
+    """DINOv2-S's per-layer logits, ragged R and C, a long row, and a
+    logit scale whose alpha shift is negative (60)."""
+    g = torch.Generator(device=cuda_device).manual_seed(r + c)
+    x = torch.clamp(torch.round(torch.randn((r, c), generator=g,
+                                            device=cuda_device) * 3.0
+                                / scale), -127, 127).to(torch.int8)
+    before = smax_ops.KERNEL.launches
+    y = smax_ops.int_softmax_cuda(x, logit_scale=scale)
+    torch.cuda.synchronize()
+    assert smax_ops.KERNEL.launches == before + 1
+    want = int_softmax_ref(x, logit_scale=scale)
+    assert torch.equal(y, want), int((y != want).sum())
+
+
+def test_int_softmax_op_dispatches_by_device(cuda_device):
+    x = torch.randint(-127, 128, (2, 3, 50), dtype=torch.int8,
+                      device=cuda_device)
+    before = smax_ops.KERNEL.launches
+    y = smax_ops.int_softmax(x, logit_scale=0.05)
+    assert smax_ops.KERNEL.launches == before + 1
+    assert y.shape == x.shape and y.dtype == torch.uint8
+    assert torch.equal(y.cpu(), smax_ops.int_softmax(x.cpu(),
+                                                     logit_scale=0.05))
+    with pytest.raises(ValueError, match="int8"):
+        smax_ops.int_softmax_cuda(x.reshape(6, 50).int(), logit_scale=0.05)
+    with pytest.raises(ValueError, match=r"\[R, C\]"):
+        smax_ops.int_softmax_cuda(x, logit_scale=0.05)
+    with pytest.raises(ValueError, match="contiguous"):
+        smax_ops.int_softmax_cuda(x.reshape(6, 50).t(), logit_scale=0.05)

@@ -41,6 +41,10 @@ def test_port_imports_neither_jax_nor_the_reference_package():
             "repro_torch.kernels.ssd_scan.ref", "repro_torch.bridge",
             "repro_torch.models.griffin", "repro_torch.models.attention",
             "repro_torch.kernels.rglru.ops", "repro_torch.kernels.rglru.ref",
+            "repro_torch.core.ita", "repro_torch.kernels.int_softmax.ops",
+            "repro_torch.kernels.int_softmax.ref",
+            "repro_torch.kernels.ita_attention.ops",
+            "repro_torch.kernels.ita_attention.ref",
             } <= set(mods)
     script = (
         "import importlib, sys\n"
@@ -74,7 +78,7 @@ def test_kernels_are_registered_with_their_tpu_counterparts():
     assert set(by_name) == {"int8_gemm", "paged_attention",
                             "paged_attention_int8", "paged_attention_verify",
                             "paged_attention_verify_int8", "ssd_scan",
-                            "rglru"}
+                            "rglru", "ita_attention", "int_softmax"}
     for k in by_name.values():
         assert k.library.source.exists()
         assert k.replaces.startswith("src/repro/kernels/")
