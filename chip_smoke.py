@@ -16,11 +16,12 @@ Phases (each exits non-zero on failure; none is caught):
    at mamba2-2.7b's widths (S = 1, 5, 129, 512, 2048, with and without the
    state, and a G = 2 case) allclose, and the RG-LRU scan at
    recurrentgemma-9b's width (D = 4096; S = 1 to 2300 and a B = 3 case,
-   bf16 and f32 inputs) allclose, the ITA fused attention at glm4-9b's
-   prefill width (and a GQA-free case, 64- and 125-key tiles, DINOv2-S's
-   137-row tiles, the saturated causal corner) bit-exact, and the ITA
-   integer softmax at DINOv2-S's per-layer logits (and ragged rows and
-   columns) bit-exact; time kernel, plain version, a library
+   bf16 and f32 inputs) allclose, the ITA fused attention at each width
+   phase 6 runs (glm4-9b's prefill, DINOv2-S, Whisper-Tiny encoder,
+   MobileBERT) and at a GQA-free case, 64- and 125-key tiles and the
+   saturated causal corner bit-exact, and the ITA integer softmax at each
+   paper network's per-layer logits (and ragged rows and columns)
+   bit-exact; time kernel, plain version, a library
    yardstick where one PyTorch call computes the same function (timed here,
    never called by the port) and the card's bound;
 3. serve full-width glm4-9b (random weights from a seeded generator, depth
@@ -70,7 +71,10 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12,
+            # scalar int32 on the CUDA cores: the f32 rate counts an FMA as
+            # two on 128 lanes per SM; an SM has 64 INT32 lanes, one each
+            "int32": 67e12 / 4}
 SEED = 0
 
 
@@ -86,9 +90,12 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def bound(nbytes: float, ops: float, kind: str):
+def bound(nbytes: float, ops: float, kind: str, **other_ops: float):
+    """Least ms for the work: bytes at the memory rate, or the operations of
+    the slowest unit (``other_ops``: kind=count run alongside ``kind``)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[kind] * 1e3
+    t_ops = max(n / PEAK_OPS[k] for k, n in
+                {kind: ops, **other_ops}.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -563,9 +570,11 @@ def ita_inputs(torch, gen, b, hq, hkv, sq, skv, d, *, saturated=False):
 
 
 def check_ita_attention(torch, cfg, flush):
-    """Kernel B6 at glm4-9b's prefill width (B = 1, 32 query / 2 kv heads,
-    S = 2048, D = 128, causal, 128-row tiles) and six more cases, each
-    bit-exact against its plain version on the card."""
+    """Kernel B6 at each width phase 6 runs (MobileBERT, Whisper-Tiny
+    encoder, DINOv2-S, and the glm4-9b prompt: B = 1, 32 query / 2 kv heads,
+    S = 2048, D = 128, causal, 128-row tiles, the timed case), at four more
+    cases and at the saturated floor corner, each bit-exact against its
+    plain version on the card."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.ita_attention import ops
@@ -576,13 +585,13 @@ def check_ita_attention(torch, cfg, flush):
     sc = 4.0 / 127
     real = dict(qk_scale=sc * sc, v_scale=sc, out_scale=sc)
     hq, hkv, hd, s = cfg.n_heads, cfg.n_kv_heads, cfg.hd, 2048
-    cases = [  # name, (B, Hq, Hkv, S, D), tiles, causal, saturated, scales
-        ("glm4-9b prefill", (1, hq, hkv, s, hd), 128, 128, True, False, real),
+    # name, (B, Hq, Hkv, S, D), tiles, causal, saturated, scales
+    cases = [(name, (1, nq, nkv, sl, d), blk, blk, causal, False, real)
+             for name, _, nq, nkv, sl, d, causal, blk, _ in ita_widths(cfg)]
+    cases += [
         ("no GQA", (2, 8, 8, 512, 64), 128, 128, True, False, real),
         ("block_kv 64", (1, hq, hkv, 1024, hd), 128, 64, True, False, real),
         ("block_kv 125", (1, 6, 6, 1000, 64), 125, 125, True, False, real),
-        ("DINOv2-S tiles", (1, 6, 6, 1370, 64), 137, 137, False, False,
-         real),
         ("saturated", (1, 4, 2, 256, 48), 64, 32, True, True,
          dict(qk_scale=1e-3, v_scale=0.03, out_scale=0.02)),
     ]
@@ -600,7 +609,7 @@ def check_ita_attention(torch, cfg, flush):
             raise AssertionError(f"ita_attention {name}: "
                                  f"{int((y != want).sum())} outputs differ")
         n_checked += 1
-        if main is None:
+        if name == "glm4-9b prompt":
             main = (q, k, v, kw)
     # the saturated causal corner: every logit at the exponent floor, so
     # the skipped tiles above the diagonal would change the result
@@ -627,10 +636,13 @@ def check_ita_attention(torch, cfg, flush):
                   (q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)))
     sdpa_ms = timed(torch, lambda: F.scaled_dot_product_attention(
         qb, kb, vb, is_causal=True), 20, flush)
-    # work the mask keeps: row r attends min(r + 1, S) keys when causal
-    pairs = s * (s + 1) // 2
-    b_ms, b_by = bound(q.numel() * 2 + k.numel() * 2,
-                       4 * hq * hd * pairs, "int8")
+    # work the mask keeps: row r attends min(r + 1, S) keys when causal.
+    # Per kept (row, key) pair: the two int8 products over D (tensor-core
+    # int8), and 26 scalar int32 operations on the CUDA cores: requantize
+    # 9, alpha 3, tile max 1, exponent 2, exp2_fixed 8, p8 2, sum 1
+    pairs = hq * s * (s + 1) // 2
+    b_ms, b_by = bound(q.numel() * 2 + k.numel() * 2, 4 * hd * pairs,
+                       "int8", int32=26 * pairs)
     return dict(
         name="ita_attention", route="cuda",
         source="src/repro_torch/kernels/ita_attention/csrc/ita_attention.cu",
@@ -641,9 +653,10 @@ def check_ita_attention(torch, cfg, flush):
         cases_checked=n_checked, sdpa_ms=sdpa_ms)
 
 
-def check_int_softmax(torch, flush):
-    """Kernel B7 at DINOv2-S's per-layer logits ([6·1370, 1370]) and at
-    ragged rows and columns, bit-exact against ``int_softmax_ref``."""
+def check_int_softmax(torch, cfg, flush):
+    """Kernel B7 at each paper network's per-layer logits (phase 6; DINOv2-S's
+    [6·1370, 1370] is timed) and at ragged rows and columns, bit-exact
+    against ``int_softmax_ref``."""
     from repro_torch.kernels.int_softmax import ops
     from repro_torch.kernels.int_softmax.ref import int_softmax_ref
 
@@ -654,10 +667,12 @@ def check_int_softmax(torch, flush):
         x = torch.randn((r, c), generator=gen, device="cuda") * 3.0
         return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
 
+    # each paper network's per-layer [H·S, S] logits (phase 6), then ragged
+    paper = [(hq * sl, sl, s_logit) for _, _, hq, _, sl, _, _, _, on
+             in ita_widths(cfg) if on]
     n_checked = 0
-    for r, c, scale in ((6 * 1370, 1370, s_logit), (1001, 999, 0.06),
-                        (3, 1, s_logit), (5, 4099, 60.0), (1, 100003, 0.06),
-                        (6 * 1500, 1500, s_logit)):
+    for r, c, scale in paper + [(1001, 999, 0.06), (3, 1, s_logit),
+                                (5, 4099, 60.0), (1, 100003, 0.06)]:
         x = logits(r, c, scale)
         y = ops.int_softmax_cuda(x, logit_scale=scale)
         want = int_softmax_ref(x, logit_scale=scale)
@@ -671,9 +686,10 @@ def check_int_softmax(torch, flush):
         x, logit_scale=s_logit), 50, flush)
     plain_ms = timed(torch, lambda: int_softmax_ref(x, logit_scale=s_logit),
                      10, flush)
-    # bytes: the int8 logits in, the uint8 probabilities out; about 14
-    # integer operations per element (max, exponent, exp2, sum, divide)
-    b_ms, b_by = bound(2 * x.numel(), 14 * x.numel(), "int8")
+    # bytes: the int8 logits in, the uint8 probabilities out. Operations:
+    # 17 scalar int32 per element on the CUDA cores (max 1, exponent 4 and
+    # exp2_fixed 8 once, sum 1, e * 255 + den / 2 and the divide 3)
+    b_ms, b_by = bound(2 * x.numel(), 17 * x.numel(), "int32")
     return dict(
         name="int_softmax", route="cuda",
         source="src/repro_torch/kernels/int_softmax/csrc/int_softmax.cu",
@@ -1111,7 +1127,7 @@ def main() -> None:
                check_rglru(torch, rcfg,
                            [1, 5, 255, 256, 257, 512, 2048, 2300], 512),
                check_ita_attention(torch, cfg, flush),
-               check_int_softmax(torch, flush)]
+               check_int_softmax(torch, cfg, flush)]
     del scratch
     for e in entries:
         lib = ("null" if e["library_ms"] is None

@@ -4,7 +4,8 @@ Each kernel source (``kernels/<name>/csrc/*.cu``) exports a plain C launch
 function that takes device pointers, sizes and a ``cudaStream_t`` and
 returns ``cudaGetLastError()``. ``CudaLibrary`` compiles one source with
 ``nvcc`` for ``sm_90a`` into a shared library under ``kernels/_build/``
-(keyed by the source's hash, so an edited source rebuilds) and loads it
+(keyed by the hash of the source and of the shared headers in
+``kernels/common/``, so an edited source or header rebuilds) and loads it
 with ``ctypes``. ``CudaKernel`` is one launch function of a library plus
 its launch count — the number that shows a run went through the kernel.
 
@@ -27,6 +28,7 @@ import torch
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR / "_build"
+COMMON_DIR = KERNELS_DIR / "common"     # headers the sources include
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -51,8 +53,11 @@ class CudaLibrary:
 
     @property
     def lib_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(COMMON_DIR.glob("*.cuh")):
+            h.update(header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        digest = h.hexdigest()
         return BUILD_DIR / f"{self.source.stem}-{digest[:16]}.so"
 
     def start_build(self) -> Optional[subprocess.Popen]:

@@ -24,7 +24,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../common/int32.cuh"
+
 namespace {
+
+using namespace int32_ref;
 
 constexpr int BM = 8;              // output rows per block
 constexpr int COLS = 4;            // output columns per thread
@@ -34,55 +38,6 @@ constexpr int KS = 32;             // k-slices per block
 constexpr int THREADS = CT * KS;   // 256 = BM * BN (one output per thread)
 
 enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2 };
-
-// int32 arithmetic with the reference's wrap-around (and XLA's shift rules)
-__device__ __forceinline__ int add32(int a, int b) {
-  return (int)((unsigned)a + (unsigned)b);
-}
-__device__ __forceinline__ int mul32(int a, int b) {
-  return (int)((unsigned)a * (unsigned)b);
-}
-__device__ __forceinline__ int shl32(int v, int s) {  // s >= 0
-  return s >= 32 ? 0 : (int)((unsigned)v << s);
-}
-__device__ __forceinline__ int sra32(int v, int s) {  // s >= 0
-  return v >> (s > 31 ? 31 : s);
-}
-__device__ __forceinline__ int abs32(int v) {
-  return v < 0 ? (int)(0u - (unsigned)v) : v;
-}
-
-// core/quant.py round_shift: arithmetic right shift with round-half-away;
-// a negative s shifts left
-__device__ int round_shift(int v, int s) {
-  if (s > 0) {
-    int half = shl32(1, s - 1);
-    return sra32(add32(v, mul32(v >= 0 ? 1 : -1, half)), s);
-  }
-  if (s == 0) return v;
-  return shl32(v, -s);
-}
-
-// core/quant.py requantize. Only the lane the reference keeps is computed;
-// acc*m of a large acc (which overflows int32) is never formed.
-__device__ int requantize(int acc, int m, int shift) {
-  int y;
-  int a = abs32(acc);
-  if (a < (1 << 16)) {
-    y = round_shift(mul32(acc, m), shift);
-  } else {
-    int bits = __float_as_int((float)a);   // magnitude exponent by bitcast
-    int e = ((bits >> 23) & 0xFF) - 126;
-    int pre = max(e - 15, 0);
-    int acc_n = round_shift(acc, pre);
-    if (shift - pre < 0) {
-      y = acc >= 0 ? 127 : -127;           // saturated
-    } else {
-      y = round_shift(mul32(acc_n, m), shift - pre);
-    }
-  }
-  return min(max(y, -127), 127);
-}
 
 // core/ita.py int_gelu_i8 with its host-folded constants
 __device__ int int_gelu_i8(int q, int qb, int qc, int one, int gm, int gshift) {

@@ -14,9 +14,14 @@
 //   XLA's shift does). Any R, and 1 <= C <= 2^22 (e <= 256: the int32 sum
 //   holds).
 //
-// What bounds it: bytes. It reads C bytes and writes C bytes per row and
-//   does about 14 integer operations per element: at DINOv2-S's per-layer
-//   logits ([6 x 1370, 1370]) that is 22.5 MB, 6.7 us at 3.35 TB/s.
+// What bounds it: scalar integer operations. It reads C bytes and writes
+//   C bytes per row, and the function needs 17 int32 operations per element
+//   (max 1, exponent 4, exp2_fixed 8, sum 1, e * 255 + den / 2 and the
+//   divide 3), which only the CUDA cores' INT32 lanes do (about 16.75 TOP/s
+//   on an H100 SXM). At DINOv2-S's per-layer logits ([6 x 1370, 1370]) that
+//   is 191 M operations, 11.4 us, against 22.5 MB, 6.7 us at 3.35 TB/s.
+//   The kernel computes the exponent twice (passes 2 and 3) rather than
+//   storing it.
 // What the design does about it: one warp per row, lanes on neighbouring
 //   bytes, so each pass reads the row in coalesced 32-byte pieces; the
 //   second and third passes find the row in L1/L2 (1.4 KB at DINOv2-S), so
@@ -27,19 +32,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../common/int32.cuh"
+
 namespace {
 
-constexpr int WARPS = 8;          // rows per block, one warp each
-constexpr int FB = 8;             // Q(FB) exponent domain
-constexpr int ONE = 1 << FB;
-constexpr int NEG_T = -(31 << FB);
-constexpr int PROB_MAX = 255;
+using namespace int32_ref;
 
-__device__ __forceinline__ int exp2_fixed(int t) {
-  int ip = t >> FB;               // arithmetic shift: floor
-  int fp = t - ip * ONE;
-  return (ONE + fp) >> min(max(-ip, 0), 31);
-}
+constexpr int WARPS = 8;          // rows per block, one warp each
+constexpr int PROB_MAX = 255;
 
 __device__ __forceinline__ int exponent(int x, int m, int mult, int rshift) {
   return max(((x - m) * mult) >> rshift, NEG_T);

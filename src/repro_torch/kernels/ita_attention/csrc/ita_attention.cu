@@ -23,11 +23,15 @@
 //   version's separate tensor ops do. GQA: q head h reads kv head
 //   h / group in place.
 //
-// What bounds it: operations. The work is 4 * BH * D int8 operations per
-//   (row, key) pair the mask keeps (the two products); at glm4-9b's
-//   prefill width (32 q heads, S = 2048, D = 128, causal) that is about
-//   34.4 G, 17.4 us at 1979 TOP/s, against 17.8 MB of q, k, v and out
-//   (5.3 us at 3.35 TB/s).
+// What bounds it: operations. Per (row, key) pair the mask keeps, the two
+//   products take 4 * D int8 operations (tensor-core work), and the integer
+//   softmax 26 scalar int32 operations on the CUDA cores (requantize 9,
+//   alpha 3, tile max 1, exponent 2, exp2_fixed 8, p8 2, sum 1). At
+//   glm4-9b's prefill width (32 q heads, S = 2048, D = 128, causal: 67.1 M
+//   pairs) that is 34.4 G int8 operations, 17.4 us at 1979 TOP/s, and
+//   1.75 G int32 operations, 104 us at about 16.75 TOP/s: the scalar
+//   softmax bounds it, against 17.8 MB of q, k, v and out (5.3 us at
+//   3.35 TB/s).
 // What the design does about it: nothing fast yet; it is the simple kernel
 //   that is right. A block of 8 warps owns 16 query rows of one head (two
 //   per warp) and walks the kv tiles in the reference's order (a split over
@@ -47,7 +51,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../common/int32.cuh"
+
 namespace {
+
+using namespace int32_ref;
 
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
@@ -57,62 +65,6 @@ constexpr int MAX_BKV = 256;
 constexpr int MAX_D = 256;
 constexpr int KPL = MAX_BKV / 32;       // keys per lane
 constexpr int DPL = MAX_D / 32;         // output columns per lane
-constexpr int FB = 8;
-constexpr int ONE = 1 << FB;
-constexpr int NEG_T = -(31 << FB);
-
-// int32 arithmetic with the reference's wrap-around and XLA's shift rules,
-// and core/quant.py requantize (the same functions as int8_gemm.cu)
-__device__ __forceinline__ int add32(int a, int b) {
-  return (int)((unsigned)a + (unsigned)b);
-}
-__device__ __forceinline__ int mul32(int a, int b) {
-  return (int)((unsigned)a * (unsigned)b);
-}
-__device__ __forceinline__ int shl32(int v, int s) {  // s >= 0
-  return s >= 32 ? 0 : (int)((unsigned)v << s);
-}
-__device__ __forceinline__ int sra32(int v, int s) {  // s >= 0
-  return v >> (s > 31 ? 31 : s);
-}
-__device__ __forceinline__ int abs32(int v) {
-  return v < 0 ? (int)(0u - (unsigned)v) : v;
-}
-
-__device__ int round_shift(int v, int s) {
-  if (s > 0) {
-    int half = shl32(1, s - 1);
-    return sra32(add32(v, mul32(v >= 0 ? 1 : -1, half)), s);
-  }
-  if (s == 0) return v;
-  return shl32(v, -s);
-}
-
-__device__ int requantize(int acc, int m, int shift) {
-  int y;
-  int a = abs32(acc);
-  if (a < (1 << 16)) {
-    y = round_shift(mul32(acc, m), shift);
-  } else {
-    int bits = __float_as_int((float)a);   // magnitude exponent by bitcast
-    int e = ((bits >> 23) & 0xFF) - 126;
-    int pre = max(e - 15, 0);
-    int acc_n = round_shift(acc, pre);
-    if (shift - pre < 0) {
-      y = acc >= 0 ? 127 : -127;           // saturated
-    } else {
-      y = round_shift(mul32(acc_n, m), shift - pre);
-    }
-  }
-  return min(max(y, -127), 127);
-}
-
-// core/ita.py exp2_fixed: 2^(t / 256) in Q8 for t <= 0
-__device__ __forceinline__ int exp2_fixed(int t) {
-  int ip = t >> FB;                        // arithmetic shift: floor
-  int fp = t - ip * ONE;
-  return (ONE + fp) >> min(max(-ip, 0), 31);
-}
 
 struct Layout {
   int dw, sk, bw, sv;                      // words: q/k row, K stride, V^T row, V^T stride

@@ -531,6 +531,7 @@ def _ita_case(dev, b, hq, hkv, sq, skv, d, *, seed=0, saturated=False):
     (1, 6, 6, 1000, 64, 125, 125, True, False),     # block_kv 125
     (1, 6, 6, 1370, 64, 137, 137, False, False),    # DINOv2-S
     (1, 6, 6, 1500, 64, 125, 125, False, False),    # Whisper-Tiny
+    (1, 4, 4, 128, 128, 128, 128, False, False),    # MobileBERT
     (1, 4, 2, 256, 48, 64, 32, True, True),         # saturated, q ≠ kv tile
     (1, 4, 1, 100, 20, 25, 20, True, True),         # D % 4 ≠ 0
     (1, 2, 2, 256, 256, 64, 256, True, False),      # the largest tile
@@ -603,12 +604,14 @@ def test_int8_attention_on_card_equals_cpu(cuda_device, dtype):
     assert y.dtype == dtype and torch.equal(y.cpu(), want)
 
 
-@pytest.mark.parametrize("r,c", [(6 * 1370, 1370), (1001, 999), (3, 1),
+@pytest.mark.parametrize("r,c", [(6 * 1370, 1370), (6 * 1500, 1500),
+                                 (4 * 128, 128), (1001, 999), (3, 1),
                                  (5, 4099), (1, 100003), (256, 128)])
 @pytest.mark.parametrize("scale", [0.06, 10.0 / 127, 60.0])
 def test_int_softmax_bit_exact(cuda_device, r, c, scale):
-    """DINOv2-S's per-layer logits, ragged R and C, a long row, and a
-    logit scale whose alpha shift is negative (60)."""
+    """The paper networks' per-layer logits (DINOv2-S, Whisper-Tiny,
+    MobileBERT), ragged R and C, a long row, and a logit scale whose alpha
+    shift is negative (60)."""
     g = torch.Generator(device=cuda_device).manual_seed(r + c)
     x = torch.clamp(torch.round(torch.randn((r, c), generator=g,
                                             device=cuda_device) * 3.0

@@ -84,6 +84,23 @@ def test_kernels_are_registered_with_their_tpu_counterparts():
         assert k.replaces.startswith("src/repro/kernels/")
 
 
+def test_kernel_library_name_follows_its_shared_headers(tmp_path,
+                                                        monkeypatch):
+    """An edit to a header in ``kernels/common`` renames (so rebuilds)
+    every library that could include it."""
+    from repro_torch.kernels import build
+
+    assert (build.COMMON_DIR / "int32.cuh").exists()
+    monkeypatch.setattr(build, "COMMON_DIR", tmp_path)
+    (tmp_path / "int32.cuh").write_text("// one\n")
+    lib = build.CudaLibrary(build.KERNELS_DIR / "int_softmax" / "csrc"
+                            / "int_softmax.cu")
+    before = lib.lib_path
+    assert lib.lib_path == before
+    (tmp_path / "int32.cuh").write_text("// two\n")
+    assert lib.lib_path != before
+
+
 def test_arena_entry_point_raises_without_cuda_unless_cpu_is_asked(
         monkeypatch):
     """The Mamba-2 family on the arena backend: the same device rule."""
