@@ -12,7 +12,9 @@ Phases (each exits non-zero on failure; none is caught):
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes glm4-9b's serving path gives it — the int8 GEMM bit-exact (at
    decode's M = 8 and verify's M = 40), paged decode and verify attention
-   allclose, verify at Q = 1 bit-equal to decode — and the SSD chunked scan
+   allclose (also with lens on and beside their split boundaries, a window
+   starting inside a split and a 4096-key row), verify at Q = 1 and in
+   row 0 bit-equal to decode — and the SSD chunked scan
    at mamba2-2.7b's widths (S = 1, 5, 129, 512, 2048, with and without the
    state, and a G = 2 case) allclose, and the RG-LRU scan at
    recurrentgemma-9b's width (D = 4096; S = 1 to 2300 and a B = 3 case,
@@ -23,7 +25,9 @@ Phases (each exits non-zero on failure; none is caught):
    paper network's per-layer logits (and ragged rows and columns)
    bit-exact; time kernel, plain version, a library
    yardstick where one PyTorch call computes the same function (timed here,
-   never called by the port) and the card's bound;
+   never called by the port) and the card's bound; for the paged-attention
+   kernels and their yardsticks also the device time a call as
+   ``torch.profiler`` sees it, and the kernels' grids;
 3. serve full-width glm4-9b (random weights from a seeded generator, depth
    as published) through ``LLMEngine(backend="paged")`` with bf16 pools and
    with int8 pools: plain decode, then speculative decoding
@@ -118,9 +122,61 @@ def timed(torch, fn, reps: int, flush=None) -> float:
     return total / reps
 
 
+def dev_us(e) -> float:
+    """An event's own device time (µs) in ``torch.profiler``'s averages."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_ms(torch, fn, flush, reps: int = 20):
+    """Device time per call from ``torch.profiler``: what ``fn`` puts on
+    the card (kernels, memsets), with L2 flushed before each call as in
+    ``timed``; the flush's own kernels are left out. Returns (ms or None
+    when the profiler saw no device activity, device ops per call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def on_device(prof):
+        return {e.key: (dev_us(e), e.count) for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA")}
+
+    with profile(activities=acts) as prof:
+        flush()
+        torch.cuda.synchronize()
+    skip = set(on_device(prof))
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        for _ in range(reps):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    seen = {k: v for k, v in on_device(prof).items() if k not in skip}
+    total = sum(t for t, _ in seen.values())
+    return (total / reps / 1e3 if total else None,
+            sum(c for _, c in seen.values()) / reps)
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernels vs plain versions at glm4-9b's serving shapes
 # ---------------------------------------------------------------------------
+
+
+def split_lens(cfg, blk, pool, top):
+    """Lens on, one below and one past the paged-attention kernels' split
+    boundaries for a table sized for ``top`` keys (as ``attention_case``
+    sizes it): ``top`` = 544 (phase 2's table) or 4096 (a longer split)."""
+    import torch
+
+    from repro_torch.kernels.paged_attention import ops
+
+    m = -(-(top + 2 * blk) // blk)
+    esz = torch.empty((), dtype=pool).element_size()
+    w = ops.split_plan(m, blk, cfg.hd, esz)[1] * blk     # keys per split
+    if top > 2048:
+        return [0, 1, w - 1, w, w + 1, 1000, 2047, top]
+    return [0, w - 1, w, w + 1, 2 * w - 1, 2 * w, 2 * w + 1, top]
 
 
 def check_int8_gemm(torch, cfg, slots, verify_rows):
@@ -262,11 +318,19 @@ def check_attention(torch, cfg, slots, blk, lens, flush, *, int8):
     op = ops.paged_attention_int8 if int8 else ops.paged_attention
     ref = paged_attention_int8_dequant_ref if int8 else paged_attention_ref
     pools = [torch.int8] if int8 else [torch.bfloat16, torch.float32]
-    variants = [dict(), dict(window=100, start=True)]
     main_err = None
+    n_checked = 0
     for pool in pools:
-        for var in variants:
-            args, kw = attention_case(torch, cfg, slots, lens,
+        # the serving lens, then lens on and beside split boundaries, a
+        # window starting inside a split and a 4096-key row
+        for case_lens, var in (
+                (lens, dict()), (lens, dict(window=100, start=True)),
+                (split_lens(cfg, blk, pool, 544), dict()),
+                (split_lens(cfg, blk, pool, 544), dict(window=100,
+                                                       start=True)),
+                (split_lens(cfg, blk, pool, 4096), dict(window=1000,
+                                                        start=True))):
+            args, kw = attention_case(torch, cfg, slots, case_lens,
                                       pool_dtype=pool, int8=int8, blk=blk,
                                       **var)
             if int8:
@@ -282,8 +346,10 @@ def check_attention(torch, cfg, slots, blk, lens, flush, *, int8):
             if not torch.all(out[0] == 0):
                 raise AssertionError("a lens == 0 row is not zero")
             err = (out.float() - want.float()).abs().max().item()
-            if not var and pool in (torch.bfloat16, torch.int8):
+            if case_lens is lens and not var and pool in (torch.bfloat16,
+                                                          torch.int8):
                 main_err = err
+            n_checked += 1
     # timing at the serving shape: bf16 q, bf16 or int8 pools, ragged lens
     args, kw = attention_case(torch, cfg, slots, lens,
                               pool_dtype=torch.int8 if int8 else torch.bfloat16,
@@ -311,6 +377,9 @@ def check_attention(torch, cfg, slots, blk, lens, flush, *, int8):
         sdpa = dict(attn_mask=mask)
     library_ms = timed(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, **sdpa), 50, flush)
+    dev_ms, dev_ops = device_ms(torch, lambda: op(*args, **kw), flush)
+    lib_dev_ms, lib_ops = device_ms(
+        torch, lambda: F.scaled_dot_product_attention(q, k, v, **sdpa), flush)
     tokens = int(lens_t.sum().item())
     esz = 1 if int8 else 2
     nblocks = sum(-(-int(x) // blk) for x in lens)
@@ -326,7 +395,9 @@ def check_attention(torch, cfg, slots, blk, lens, flush, *, int8):
         source="src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
         replaces=kern.replaces.split()[0], max_abs_err=main_err,
         ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=library_ms,
+        library_ms=library_ms, device_ms=dev_ms, device_ops=dev_ops,
+        library_device_ms=lib_dev_ms, library_device_ops=lib_ops,
+        grid=ops.launch_grid(q, kp, table), cases_checked=n_checked,
         shape=f"B={slots} Hq={cfg.n_heads} Hkv={cfg.n_kv_heads} D={cfg.hd} "
               f"blk={blk} lens={list(lens)}")
 
@@ -346,14 +417,23 @@ def check_verify(torch, cfg, slots, blk, lens, qlen, flush, *, int8):
     dec = ops.paged_attention_int8 if int8 else ops.paged_attention
     ref = (paged_attention_verify_int8_dequant_ref if int8
            else paged_attention_verify_ref)
-    lens = [max(x, 1) for x in lens]          # verify rows attend lens ≥ 1
-    cases = ([(torch.int8, dict()), (torch.int8, dict(window=100, start=True))]
-             if int8 else [(torch.bfloat16, dict()),
-                           (torch.float32, dict(window=100, start=True))])
+    def at_least_1(xs):                       # verify rows attend lens ≥ 1
+        return [max(x, 1) for x in xs]
+
+    lens = at_least_1(lens)
+
+    pools = [torch.int8] if int8 else [torch.bfloat16, torch.float32]
+    cases = [(pools[0], lens, dict()),
+             (pools[-1], lens, dict(window=100, start=True))]
+    for pool in pools:  # split boundaries, a window inside a split, 4096 keys
+        cases += [(pool, at_least_1(split_lens(cfg, blk, pool, 544)), dict()),
+                  (pool, at_least_1(split_lens(cfg, blk, pool, 4096)),
+                   dict(window=1000, start=True))]
     main_err = None
-    for pool, var in cases:
-        args, kw = attention_case(torch, cfg, slots, lens, pool_dtype=pool,
-                                  int8=int8, blk=blk, qlen=qlen, **var)
+    for pool, case_lens, var in cases:
+        args, kw = attention_case(torch, cfg, slots, case_lens,
+                                  pool_dtype=pool, int8=int8, blk=blk,
+                                  qlen=qlen, **var)
         if int8:
             args = (args[0].bfloat16(),) + args[1:]
         out = op(*args, **kw)
@@ -363,7 +443,7 @@ def check_verify(torch, cfg, slots, blk, lens, qlen, flush, *, int8):
         torch.testing.assert_close(out.float(), want.float(), atol=tol,
                                    rtol=tol)
         err = (out.float() - want.float()).abs().max().item()
-        if not var:
+        if case_lens is lens and not var:
             main_err = err
         q1 = args[0][:, :, :1].contiguous()
         d1 = dec(q1, *args[1:], **kw)
@@ -400,6 +480,9 @@ def check_verify(torch, cfg, slots, blk, lens, qlen, flush, *, int8):
         sdpa = dict(attn_mask=mask)
     library_ms = timed(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, **sdpa), 50, flush)
+    dev_ms, dev_ops = device_ms(torch, lambda: op(*args, **kw), flush)
+    lib_dev_ms, lib_ops = device_ms(
+        torch, lambda: F.scaled_dot_product_attention(q, k, v, **sdpa), flush)
     # bytes: q in and out once, each row's K/V up to its last query's
     # length once, table entries, lens, per-block scales
     keys = [x + qlen - 1 for x in lens]
@@ -417,7 +500,9 @@ def check_verify(torch, cfg, slots, blk, lens, qlen, flush, *, int8):
         source="src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
         replaces=kern.replaces.split()[0], max_abs_err=main_err,
         ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=library_ms,
+        library_ms=library_ms, device_ms=dev_ms, device_ops=dev_ops,
+        library_device_ms=lib_dev_ms, library_device_ops=lib_ops,
+        grid=ops.launch_grid(q, kp, table), cases_checked=len(cases),
         shape=f"B={slots} Hq={cfg.n_heads} Hkv={cfg.n_kv_heads} D={cfg.hd} "
               f"Q={qlen} blk={blk} lens={lens}")
 
@@ -923,11 +1008,6 @@ def profile_decode(torch, arch, params, cache, tokens):
         arch.decode_step(params, cache, tokens)
         torch.cuda.synchronize()
     avgs = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
     # kernels are the device-side entries; each host op's self device time
     # is the time of the kernels it launched (the same kernels again)
     kernels = [e for e in avgs if str(e.device_type).endswith("CUDA")]
@@ -1155,7 +1235,20 @@ def main() -> None:
     print(f"kernel int8_gemm at the verify pass's M={gemm['verify_rows']}: "
           f"kernel_ms={gemm['verify_ms']:.4f} "
           f"bound_ms={gemm['verify_bound_ms']:.4f}", flush=True)
-    print("verify kernels at Q=1 and in row 0: bit-equal to decode", flush=True)
+    for e in entries[1:5]:
+        ctas = e["grid"][0] * e["grid"][1] * e["grid"][2]
+        dev = ("not measured" if e["device_ms"] is None
+               else f"{e['device_ms']:.4f}")
+        lib = ("not measured" if e["library_device_ms"] is None
+               else f"{e['library_device_ms']:.4f}")
+        print(f"kernel {e['name']}: device_ms={dev} "
+              f"({e['device_ops']:g} device ops a call) "
+              f"library_device_ms={lib} ({e['library_device_ops']:g}) "
+              f"(torch.profiler); grid {tuple(e['grid'])} = {ctas} blocks "
+              f"for 132 SMs; {e['cases_checked']} cases checked",
+              flush=True)
+    print("verify kernels at Q=1 and in row 0: bit-equal to decode (serving "
+          "lens and split-boundary lens)", flush=True)
 
     # -- phase 3: full-width glm4-9b through LLMEngine ----------------------
     same_f, total_f = small_input_agreement(torch, quant=False)

@@ -16,12 +16,19 @@ Layouts are the reference's: q ``[B, Hq, Q, D]`` (``Q = 1`` for decode,
 ``spec_tokens + 1`` for verify), pools ``[N, Hkv, block_len, D]``, block
 table ``[B, M]`` int32, lens and start ``[B]`` int32, per-block scales
 ``[N]`` f32.
+
+The kernel splits each row's table walk over several blocks (split-KV flash
+decoding). ``split_plan`` fixes where — from the table width and the pool
+geometry, never from ``Q``, which keeps verify bit-equal to decode — and
+``row_chunks`` how many folded query rows one block holds; the wrapper
+allocates the splits' workspace (one ``torch.empty``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,8 +44,8 @@ from repro_torch.models.attention import KV_SCALE, Q_SCALE
 _C = ctypes
 _LIB = build.CudaLibrary(
     build.KERNELS_DIR / "paged_attention" / "csrc" / "paged_attention.cu")
-_ARGTYPES = ([_C.c_void_p] * 9 + [_C.c_int] * 12 + [_C.c_float] * 3
-             + [_C.c_void_p])
+_ARGTYPES = ([_C.c_void_p] * 10 + [_C.c_int] * 14 + [_C.c_longlong]
+             + [_C.c_float] * 3 + [_C.c_void_p])
 KERNEL = build.register(build.CudaKernel(
     "paged_attention", _LIB, "paged_attention_launch", _ARGTYPES,
     replaces="src/repro/kernels/paged_attention/kernel.py:117 "
@@ -60,22 +67,53 @@ KERNEL_VERIFY_INT8 = build.register(build.CudaKernel(
 
 _QTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KVTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# one block per (row, kv head, row chunk) holds its folded query rows'
-# accumulators in registers: at most 16 per thread of its 256 threads
-MAX_GROUP_ELEMS = 16 * 256
+# the kernel's limits (csrc/paged_attention.cu): at most 112 folded rows a
+# block and rows × head_dim ≤ 16384 f32 accumulators (64 KB of shared
+# memory); at most 16 splits a row; head_dim a multiple of 16 up to 256
+MAX_ROWS, MAX_ACC, MAX_SPLITS, MAX_D = 112, 16384, 16, 256
+TILE_KEYS = 64   # keys staged per tile (32 / 16 for key rows ≥ 512 / 1024 B)
 
 
-def rows_per_block(group: int, qlen: int, d: int) -> int:
-    """Folded query rows per block: the G·Q rows of a (row, kv head) in
-    balanced chunks of at most ``MAX_GROUP_ELEMS // d`` rows (one chunk,
-    all G rows, for glm4-9b's decode; 80 → 3 × ≤ 27 for its verify at
-    k = 4)."""
-    cap = MAX_GROUP_ELEMS // d
-    if cap < 1:
-        raise ValueError(f"head_dim {d} exceeds {MAX_GROUP_ELEMS}")
+@functools.lru_cache(maxsize=None)
+def split_plan(m: int, blk: int, d: int, kv_itemsize: int
+               ) -> Tuple[int, int, int]:
+    """(table entries per staged tile, entries per split, splits per row)
+    for a table of width ``m``. A function of the table width and the pool
+    geometry only — never of the query rows — so decode and verify split a
+    row at the same entries (the kernels' bit-equality rests on it). Each
+    split walks at least one tile; a row has at most ``MAX_SPLITS`` splits
+    (glm4-9b decode, m = 34–36: 9 splits of 4 entries = 64 keys)."""
+    row = d * kv_itemsize   # bytes of one key row
+    keys = TILE_KEYS if row < 512 else TILE_KEYS // 2 if row < 1024 \
+        else TILE_KEYS // 4
+    tile = max(1, keys // blk)
+    tiles = max(1, -(-m // tile))
+    per_split = -(-tiles // MAX_SPLITS)
+    return tile, tile * per_split, -(-tiles // per_split)
+
+
+@functools.lru_cache(maxsize=None)
+def row_chunks(group: int, qlen: int, d: int) -> Tuple[int, int]:
+    """(folded query rows per block, row chunks): all G·Q rows of a (row,
+    kv head) in one block up to the block's capacity (glm4-9b: decode's 16
+    and verify's 80 at k = 4 are one chunk, up to k = 6), else balanced
+    chunks."""
+    cap = min(MAX_ROWS, MAX_ACC // d) // 16 * 16
     total = group * qlen
     chunks = -(-total // cap)
-    return -(-total // chunks)
+    return -(-total // chunks), chunks
+
+
+def launch_grid(q: torch.Tensor, k_pool: torch.Tensor,
+                block_table: torch.Tensor) -> Tuple[int, int, int]:
+    """The kernel's grid for these inputs: (splits, kv heads × row chunks,
+    batch rows)."""
+    b, hq, qlen, d = q.shape
+    _, hkv, blk, _ = k_pool.shape
+    _, _, n_splits = split_plan(block_table.shape[1], blk, d,
+                                k_pool.element_size())
+    _, chunks = row_chunks(hq // hkv, qlen, d)
+    return n_splits, hkv * chunks, b
 
 
 def _check_shapes(q, k_pool, v_pool, block_table, lens, start, qlen=None):
@@ -105,9 +143,15 @@ def _launch(kernel, q, k_pool, v_pool, block_table, lens, start, k_scale,
             v_scale, window):
     b, hq, qlen, d = q.shape
     n, hkv, blk, _ = k_pool.shape
-    rows = rows_per_block(hq // hkv, qlen, d)
+    m = block_table.shape[1]
+    if d % 16 or not 16 <= d <= MAX_D:
+        raise ValueError(f"head_dim {d}: the kernel takes multiples of 16 "
+                         f"up to {MAX_D}")
     if q.dtype not in _QTYPES:
         raise ValueError(f"q dtype {q.dtype} not supported")
+    if (q.data_ptr() | k_pool.data_ptr() | v_pool.data_ptr()) % 16:
+        raise ValueError("q and the pools must start on a 16-byte boundary "
+                         "(the kernel copies 16 bytes at a time)")
     build.check_cuda("q", q, q.dtype)
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
         if t.dtype not in _KVTYPES:
@@ -123,15 +167,28 @@ def _launch(kernel, q, k_pool, v_pool, block_table, lens, start, k_scale,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    tile_e, split_e, n_splits = split_plan(m, blk, d, k_pool.element_size())
+    rows, chunks = row_chunks(hq // hkv, qlen, d)
+    ws = None
+    if n_splits > 1:  # tickets | m, l | accumulators of every split
+        r = hq // hkv * qlen
+        ws = torch.empty(_align4(b * hkv * chunks)
+                         + _align4(b * hkv * n_splits * r * 2)
+                         + b * hkv * n_splits * r * d,
+                         dtype=torch.float32, device=q.device)
     kernel.launch(
         build.ptr(q), build.ptr(k_pool), build.ptr(v_pool),
         build.ptr(block_table), build.ptr(lens), build.ptr(start),
-        build.ptr(k_scale), build.ptr(v_scale), build.ptr(out),
-        _QTYPES[q.dtype], _KVTYPES[k_pool.dtype], b, hq, hkv, d, n, blk,
-        block_table.shape[1], -1 if window is None else int(window), qlen,
-        rows, float(np.float32(d ** -0.5)), float(np.float32(Q_SCALE)),
-        recip32(Q_SCALE), build.stream_ptr(q))
+        build.ptr(k_scale), build.ptr(v_scale), build.ptr(out), build.ptr(ws),
+        _QTYPES[q.dtype], _KVTYPES[k_pool.dtype], b, hq, hkv, d, n, blk, m,
+        -1 if window is None else int(window), qlen, rows, tile_e, split_e,
+        0 if ws is None else 4 * ws.numel(), float(np.float32(d ** -0.5)),
+        float(np.float32(Q_SCALE)), recip32(Q_SCALE), build.stream_ptr(q))
     return out
+
+
+def _align4(x: int) -> int:
+    return -(-x // 4) * 4
 
 
 def _int8_scales(name, q, k_pool, v_pool, k_scale, v_scale):

@@ -18,6 +18,14 @@ attention over it.
     row ``j`` attending ``lens + j`` keys. The ``Q`` rows are folded into
     the GQA group axis (row ``g·Q + j``), so at ``Q == 1`` each is exactly
     the decode version — the same operations on the same shapes.
+
+Each takes ``split_entries``: ``None`` (the contract, a dense softmax) or a
+number of table entries per split, for the plain model of the kernels'
+split-KV flash decoding (``split_attention``): every split's running max,
+sum and unnormalised ``p·v``, then the splits rescaled and added in split
+order. Nothing on the serving path passes it; the CPU tests hold it to the
+dense version and pin its row independence (row 0 of a verify equals the
+decode bit for bit).
 """
 
 from __future__ import annotations
@@ -79,6 +87,50 @@ def gather_kv(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
     return g.transpose(1, 2).reshape(b, hkv, m * blk, d)
 
 
+def _dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[..., R, D] · [..., S, D] → [..., R, S], each dot reduced on its own
+    (elementwise products summed over the last axis), so a row's bits do
+    not depend on how many rows are computed beside it."""
+    return (a[..., :, None, :] * b[..., None, :, :]).sum(-1)
+
+
+def split_attention(logits: torch.Tensor, valid: torch.Tensor,
+                    v: torch.Tensor, blk: int, split_entries: int,
+                    p_scale=None) -> torch.Tensor:
+    """Flash-decoding model of the kernels: the gathered positions in
+    splits of ``split_entries`` table entries; per split and row the max
+    ``m`` of the valid logits (−inf if none), ``l = Σ exp(logit − m)`` and
+    ``acc = Σ p·v`` (``p`` times ``p_scale``, the int8 pools' per-entry V
+    scale, after ``l``); then ``M = max m``, and in split order, skipping
+    splits with ``m = −inf``, ``L += exp(m − M)·l`` and ``O += exp(m −
+    M)·acc``; out ``O / L``, zero where ``L = 0``. logits ``[..., R, S]``,
+    valid broadcastable to it, v ``[..., S, D]``."""
+    if split_entries < 1:
+        raise ValueError(f"split_entries must be ≥ 1, got {split_entries}")
+    neg = float("-inf")
+    width = split_entries * blk
+    parts = []
+    for s0 in range(0, logits.shape[-1], width):
+        sl = slice(s0, s0 + width)
+        lg = torch.where(valid[..., sl], logits[..., sl], neg)
+        m = lg.amax(-1, keepdim=True)
+        p = torch.exp(lg - torch.where(m == neg, 0.0, m))
+        l_ = p.sum(-1, keepdim=True)
+        if p_scale is not None:
+            p = p * (p_scale[..., sl] if p_scale.dim() else p_scale)
+        parts.append((m, l_, _dots(p, v[..., sl, :].transpose(-1, -2))))
+    big = torch.stack([m for m, _, _ in parts]).amax(0)
+    big = torch.where(big == neg, 0.0, big)
+    lsum = torch.zeros_like(parts[0][1])
+    out = torch.zeros_like(parts[0][2])
+    for m, l_, acc in parts:
+        live = m != neg
+        w = torch.where(live, torch.exp(m - big), 0.0)
+        lsum = torch.where(live, lsum + w * l_, lsum)
+        out = torch.where(live, out + w * acc, out)
+    return torch.where(lsum > 0, out / torch.where(lsum > 0, lsum, 1.0), 0.0)
+
+
 def paged_attention_ref(
     q: torch.Tensor,            # [B, Hq, 1, D] float
     k_pool: torch.Tensor,       # [N, Hkv, blk, D]
@@ -88,6 +140,7 @@ def paged_attention_ref(
     *,
     window: Optional[int] = None,
     start: Optional[torch.Tensor] = None,  # [B] int32 abs position of entry 0
+    split_entries: Optional[int] = None,
 ) -> torch.Tensor:
     b, hq, _, d = q.shape
     hkv = k_pool.shape[1]
@@ -95,6 +148,12 @@ def paged_attention_ref(
     k = gather_kv(k_pool, block_table)      # [B, Hkv, S, D]
     v = gather_kv(v_pool, block_table)
     valid = _valid_mask(k.shape[2], lens, window, start, q.device)
+    if split_entries is not None:
+        qg = q.reshape(b, hkv, group, d).float()
+        out = split_attention(_dots(qg, k.float()) * (d ** -0.5),
+                              valid[:, None, None, :], v.float(),
+                              k_pool.shape[2], split_entries)
+        return out.reshape(b, hq, 1, d).to(q.dtype)
     # grouped GQA (no KV head expansion), f32 softmax
     qg = q.reshape(b, hkv, group, d).float()
     logits = (qg @ k.float().transpose(-1, -2)) * (d ** -0.5)
@@ -115,6 +174,7 @@ def paged_attention_verify_ref(
     *,
     window: Optional[int] = None,
     start: Optional[torch.Tensor] = None,
+    split_entries: Optional[int] = None,
 ) -> torch.Tensor:
     """Small-q verify over float pools: query row ``j`` attends ``lens + j``
     keys (the committed history plus the ``j`` drafts written before it)."""
@@ -126,6 +186,10 @@ def paged_attention_verify_ref(
     valid = _fold_rows(
         _verify_mask(k.shape[2], qlen, lens, window, start, q.device), group)
     qg = q.reshape(b, hkv, group * qlen, d).float()
+    if split_entries is not None:
+        out = split_attention(_dots(qg, k.float()) * (d ** -0.5), valid,
+                              v.float(), k_pool.shape[2], split_entries)
+        return out.reshape(b, hq, qlen, d).to(q.dtype)
     logits = (qg @ k.float().transpose(-1, -2)) * (d ** -0.5)
     logits = torch.where(valid, logits, NEG_INF)
     p = softmax(logits)
@@ -153,6 +217,7 @@ def paged_attention_int8_dequant_ref(
     v_scale,
     window: Optional[int] = None,
     start: Optional[torch.Tensor] = None,
+    split_entries: Optional[int] = None,
 ) -> torch.Tensor:
     b, hq, _, d = q.shape
     hkv, blk = k_pool.shape[1], k_pool.shape[2]
@@ -166,6 +231,11 @@ def paged_attention_int8_dequant_ref(
     s32 = qg @ k8.float().transpose(-1, -2)
     logits = s32 * Q_SCALE * _entry_scale(k_scale, block_table, blk, q.device)
     valid = _valid_mask(s, lens, window, start, q.device)
+    if split_entries is not None:
+        out = split_attention(
+            logits, valid[:, None, None, :], v8.float(), blk, split_entries,
+            _entry_scale(v_scale, block_table, blk, q.device))
+        return out.reshape(b, hq, 1, d).to(q.dtype)
     logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
     p = softmax(logits)
     p = torch.where(valid[:, None, None, :], p, 0.0)
@@ -194,6 +264,7 @@ def paged_attention_verify_int8_dequant_ref(
     v_scale,
     window: Optional[int] = None,
     start: Optional[torch.Tensor] = None,
+    split_entries: Optional[int] = None,
 ) -> torch.Tensor:
     """Small-q verify over int8 pools with the decode version's numerics
     (the int8 verify kernel's contract), per-query masks."""
@@ -207,6 +278,11 @@ def paged_attention_verify_int8_dequant_ref(
     logits = s32 * Q_SCALE * _entry_scale(k_scale, block_table, blk, q.device)
     valid = _fold_rows(
         _verify_mask(k8.shape[2], qlen, lens, window, start, q.device), group)
+    if split_entries is not None:
+        out = split_attention(
+            logits, valid, v8.float(), blk, split_entries,
+            _entry_scale(v_scale, block_table, blk, q.device))
+        return out.reshape(b, hq, qlen, d).to(q.dtype)
     logits = torch.where(valid, logits, NEG_INF)
     p = softmax(logits)
     p = torch.where(valid, p, 0.0)

@@ -13,8 +13,10 @@ attention (decode and verify) is allclose with ``paged_attention_ref`` /
 outputs: online-softmax reordering only, 1e-4; bf16 outputs: both sides
 round an f32 result to bf16, 1.6e-2 ≈ two bf16 ulps). The verify kernels
 at ``Q = 1``, and row 0 of any ``Q``, are bit-equal to the decode kernels
-at the same lengths. The SSD chunked scan is allclose with
-``ssd_scan_chunked_ref`` over the zero-padded sequence (float32; only the
+at the same lengths, also with lens on and beside the kernels' split
+boundaries, a window starting inside a split and a 4096-key row. The SSD
+chunked scan is allclose with ``ssd_scan_chunked_ref`` over the
+zero-padded sequence (float32; only the
 order of additions differs: ``rtol = 1e-4``, ``atol = 1e-4 · max|y|``), its
 final state likewise. The RG-LRU scan is allclose with ``rglru_ref``
 (float32 output: ``rtol = 1e-5``, ``atol = 1e-5 · max|h|``; bf16 output: at
@@ -145,7 +147,8 @@ def _attn_case(dev, *, pool, hq=32, hkv=2, d=128, blk=16, seed=0,
                          ids=["f32", "bf16", "int8"])
 @pytest.mark.parametrize("window,start", [(None, False), (100, True)],
                          ids=["full", "window-start"])
-@pytest.mark.parametrize("hq,d", [(32, 128), (4, 16)], ids=["glm4", "smoke"])
+@pytest.mark.parametrize("hq,d", [(32, 128), (4, 16), (8, 256)],
+                         ids=["glm4", "smoke", "d256"])
 def test_paged_attention_matches_plain_version(cuda_device, pool, window,
                                                start, hq, d):
     args, kw = _attn_case(cuda_device, pool=pool, hq=hq, d=d, window=window,
@@ -176,6 +179,21 @@ def test_paged_attention_int8_with_bf16_queries(cuda_device):
                                rtol=1.6e-2)
 
 
+def test_paged_attention_wrapper_checks_inputs(cuda_device):
+    """The kernel copies 16 bytes at a time and takes head_dim in
+    multiples of 16 up to 256: the wrapper refuses the rest."""
+    args, kw = _attn_case(cuda_device, pool=torch.bfloat16)
+    q = args[0]
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype,
+                          device=q.device)[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte"):
+        attn_ops.paged_attention(shifted, *args[1:], **kw)
+    args, kw = _attn_case(cuda_device, pool=torch.bfloat16, d=8)
+    with pytest.raises(ValueError, match="head_dim 8"):
+        attn_ops.paged_attention(*args, **kw)
+
+
 VERIFY_LENS = [max(x, 1) for x in LENS]   # verify rows attend lens ≥ 1
 
 
@@ -183,8 +201,8 @@ VERIFY_LENS = [max(x, 1) for x in LENS]   # verify rows attend lens ≥ 1
                          ids=["f32", "bf16", "int8"])
 @pytest.mark.parametrize("window,start", [(None, False), (100, True)],
                          ids=["full", "window-start"])
-@pytest.mark.parametrize("hq,d,qlen", [(32, 128, 5), (4, 16, 3)],
-                         ids=["glm4-k4", "smoke-k2"])
+@pytest.mark.parametrize("hq,d,qlen", [(32, 128, 5), (4, 16, 3), (8, 256, 5)],
+                         ids=["glm4-k4", "smoke-k2", "d256-k4"])
 def test_paged_attention_verify_matches_plain_version(cuda_device, pool,
                                                       window, start, hq, d,
                                                       qlen):
@@ -226,6 +244,80 @@ def test_verify_kernels_reduce_to_decode_bit_for_bit(cuda_device, pool):
         out5 = ver(q.contiguous(), *rest, **kw)
         torch.cuda.synchronize()
         assert torch.equal(out5[:, :, :1], dec(q1, *rest, **kw))
+
+
+def split_lens(pool, long):
+    """Lens on, one below and one past the kernel's split boundaries at
+    glm4-9b's widths (block_len 16): phase 2's table (up to 544 keys), or
+    one with a 4096-key row (M = 258 entries), where a split is longer."""
+    top = 4096 if long else 544
+    m = (top + 2 * 16 + 15) // 16                      # as _attn_case sizes it
+    esz = torch.empty((), dtype=pool).element_size()
+    w = attn_ops.split_plan(m, 16, 128, esz)[1] * 16   # keys per split
+    if long:
+        return [0, 1, w - 1, w, w + 1, 1000, 2047, top]
+    return [0, w - 1, w, w + 1, 2 * w - 1, 2 * w, 2 * w + 1, top]
+
+
+@pytest.mark.parametrize("pool", [torch.float32, torch.bfloat16, torch.int8],
+                         ids=["f32", "bf16", "int8"])
+@pytest.mark.parametrize("window,start", [(None, False), (100, True)],
+                         ids=["full", "window-start"])
+@pytest.mark.parametrize("long", [False, True], ids=["544", "4096"])
+def test_paged_attention_split_boundaries_match_plain_version(
+        cuda_device, pool, window, start, long):
+    """B1/B2 with lens on, below and past split boundaries, a window that
+    starts inside a split (100 keys before 544; 1000 before 4096), and a
+    4096-key row; the lens == 0 row is zero."""
+    window = window and (1000 if long else 100)
+    lens = split_lens(pool, long)
+    args, kw = _attn_case(cuda_device, pool=pool, window=window, start=start,
+                          lens=lens, seed=5)
+    int8 = pool == torch.int8
+    if int8:
+        args = (args[0].bfloat16(),) + args[1:]
+    kern = attn_ops.KERNEL_INT8 if int8 else attn_ops.KERNEL
+    op = attn_ops.paged_attention_int8 if int8 else attn_ops.paged_attention
+    ref = paged_attention_int8_dequant_ref if int8 else paged_attention_ref
+    before = kern.launches
+    out = op(*args, **kw)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = ref(*args, **kw)
+    tol = 1.6e-2 if out.dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.all(out[0] == 0)
+
+
+@pytest.mark.parametrize("pool", [torch.float32, torch.bfloat16, torch.int8],
+                         ids=["f32", "bf16", "int8"])
+@pytest.mark.parametrize("long", [False, True], ids=["544", "4096"])
+def test_verify_kernels_on_split_boundaries(cuda_device, pool, long):
+    """B4/B5 at Q = 5 on the split-boundary lens: allclose with the plain
+    version, and at Q = 1 and in row 0 bit-equal to B1/B2 (the verify walk
+    reaches one entry, and maybe one split, past the decode's)."""
+    int8 = pool == torch.int8
+    dec = attn_ops.paged_attention_int8 if int8 else attn_ops.paged_attention
+    ver = (attn_ops.paged_attention_verify_int8 if int8
+           else attn_ops.paged_attention_verify)
+    ref = (paged_attention_verify_int8_dequant_ref if int8
+           else paged_attention_verify_ref)
+    lens = [max(x, 1) for x in split_lens(pool, long)]
+    for var in (dict(), dict(window=1000 if long else 100, start=True)):
+        args, kw = _attn_case(cuda_device, pool=pool, qlen=5, lens=lens,
+                              seed=6, **var)
+        q = args[0].bfloat16() if int8 else args[0]
+        rest = args[1:]
+        out5 = ver(q, *rest, **kw)
+        torch.cuda.synchronize()
+        want = ref(q, *rest, **kw)
+        tol = 1.6e-2 if out5.dtype == torch.bfloat16 else 1e-4
+        torch.testing.assert_close(out5.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        q1 = q[:, :, :1].contiguous()
+        d1 = dec(q1, *rest, **kw)
+        assert torch.equal(ver(q1, *rest, **kw), d1)
+        assert torch.equal(out5[:, :, :1], d1)
 
 
 def test_serving_path_on_card_agrees_with_cpu_plain_versions(cuda_device):

@@ -8,6 +8,11 @@ plain versions a dense softmax). The cases cover GQA groups > 1, a sliding
 window, a per-row start offset, a ``lens == 0`` row and non-uniform
 per-block scales. The CUDA kernel is held to the plain version on the card
 in ``test_torch_cuda_kernels.py``.
+
+The plain model of the kernels' split-KV flash decoding (``split_entries``)
+is held to the dense plain version at the same 1e-5, with lens on and
+beside split boundaries, and the kernel's split plan to glm4-9b's decode
+shape (enough blocks for the card, the same splits for verify).
 """
 
 import jax.numpy as jnp
@@ -127,3 +132,85 @@ def test_ops_reject_bad_inputs():
     with pytest.raises(ValueError, match="multiple of kv heads"):
         ops.paged_attention(_t(qf[:, :3]), _t(kf), _t(vf), _t(table),
                             _t(lens))
+
+
+# ---------------------------------------------------------------------------
+# The plain model of the kernels' split-KV flash decoding
+# ---------------------------------------------------------------------------
+
+SPLIT_M, SPLIT_BLK = 6, 8
+# lens 0, then on, one below and one past the boundaries of the tested
+# split lengths (16: 1 and 2 entries a split; 24: 1 and 3; 48: the table)
+SPLIT_LENS = [0, 15, 16, 17, 23, 24, 25, 48]
+
+
+def split_case(seed, *, int8, qlen=1, start=False, hq=8, hkv=2, d=16,
+               n=60):
+    """Pools over a 6-entry table of 8-key blocks, 8 rows with
+    ``SPLIT_LENS`` (the last row's last query on the table's last key)
+    and an optional start; per-block scales for int8 pools."""
+    rng = np.random.default_rng(seed)
+    b, m, blk = len(SPLIT_LENS), SPLIT_M, SPLIT_BLK
+    q = (rng.standard_normal((b, hq, qlen, d)) * 2.0).astype(np.float32)
+    shape = (n, hkv, blk, d)
+    if int8:
+        k = rng.integers(-127, 128, shape).astype(np.int8)
+        v = rng.integers(-127, 128, shape).astype(np.int8)
+    else:
+        k = rng.standard_normal(shape).astype(np.float32)
+        v = rng.standard_normal(shape).astype(np.float32)
+    table = np.stack([rng.permutation(np.arange(1, n))[:m]
+                      for _ in range(b)]).astype(np.int32)
+    lens = np.asarray(SPLIT_LENS, np.int32)
+    lens[-1] -= qlen - 1
+    st = np.zeros(b, np.int32)
+    if start:
+        st = (rng.integers(0, 3, b) * blk).astype(np.int32)
+        st[0] = 0
+    lens = np.where(lens > 0, lens + st, 0).astype(np.int32)
+    kw = dict(window=None, start=_t(st) if start else None)
+    if int8:
+        kw["k_scale"] = _t(rng.uniform(0.01, 0.05, n).astype(np.float32))
+        kw["v_scale"] = _t(rng.uniform(0.01, 0.05, n).astype(np.float32))
+    return (_t(q), _t(k), _t(v), _t(table), _t(lens)), kw
+
+
+@pytest.mark.parametrize("split_entries", [1, 2, 3, SPLIT_M])
+@pytest.mark.parametrize("window,start", [(None, False), (10, True)],
+                         ids=["full", "window-start"])
+@pytest.mark.parametrize("pool", ["f32", "int8"])
+def test_split_model_matches_dense_plain_version(pool, window, start,
+                                                 split_entries):
+    """Splits of 1, 2, 3 and all M entries, rescaled and added in split
+    order, give the dense softmax's result (f32 reordering only); the
+    lens == 0 row stays zero."""
+    int8 = pool == "int8"
+    args, kw = split_case(5, int8=int8, start=start)
+    kw["window"] = window
+    ref = paged_attention_int8_dequant_ref if int8 else paged_attention_ref
+    dense = ref(*args, **kw)
+    split = ref(*args, **kw, split_entries=split_entries)
+    torch.testing.assert_close(split, dense, atol=ATOL, rtol=0)
+    assert torch.all(split[0] == 0)
+
+
+@pytest.mark.parametrize("m", [34, 36, 258])
+@pytest.mark.parametrize("pool", [torch.bfloat16, torch.int8],
+                         ids=["bf16", "int8"])
+def test_split_plan_fills_the_card_at_glm4_decode(pool, m):
+    """glm4-9b decode at 8 slots (32 q / 2 kv heads of 128, block_len 16;
+    the serving table m = 34, phase 2's 36, a 4096-key row's 258): at
+    least 100 blocks for 132 SMs, at most 16 splits a row, splits of whole
+    64-key tiles, and verify at k = 4 splits the table at the same
+    entries in one row chunk."""
+    q = torch.empty((8, 32, 1, 128), dtype=torch.bfloat16)
+    pools = torch.empty((1, 2, 16, 128), dtype=pool)
+    table = torch.empty((8, m), dtype=torch.int32)
+    n_splits, y, b = ops.launch_grid(q, pools, table)
+    assert n_splits * y * b >= 100 and n_splits <= ops.MAX_SPLITS
+    tile, per_split, _ = ops.split_plan(m, 16, 128, pools.element_size())
+    assert tile * 16 == 64 and per_split % tile == 0
+    assert per_split * n_splits >= m > per_split * (n_splits - 1)
+    q5 = torch.empty((8, 32, 5, 128), dtype=torch.bfloat16)
+    assert ops.launch_grid(q5, pools, table) == (n_splits, y, b) == (
+        n_splits, 2, 8)

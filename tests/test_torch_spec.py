@@ -6,7 +6,9 @@
   agree with the reference's verify oracles and Pallas verify kernels run
   in interpret mode, at atol 1e-5 in float32 (f32 reordering only), with
   GQA groups, sliding windows and per-row start offsets; at ``Q == 1`` they
-  are exactly the port's decode plain versions.
+  are exactly the port's decode plain versions. Their split-KV model (the
+  kernels' flash decoding) agrees with them at the same 1e-5, and its row
+  0 equals the decode's split model bit for bit.
 * End to end, the port's greedy streams equal the (synchronised) JAX
   engine's with ``spec_tokens`` in {1, 3}, float and int8 pools (int8
   anchored on ``attn_backend="interpret"``, the kernel contract), prefix
@@ -43,6 +45,7 @@ from repro_torch.kernels.paged_attention.ref import (
 from repro_torch.serve import EngineConfig, LLMEngine, RequestState
 from repro_torch.serve.spec import accept_tokens, ngram_propose
 
+from test_torch_paged_attention import SPLIT_M, split_case
 from test_torch_serve import CONFIGS, setup_pair, sync_reference_decode
 
 torch.set_num_threads(1)
@@ -191,6 +194,32 @@ def test_verify_plain_int8_matches_reference(qlen, window, start, group):
         assert torch.equal(t, dec)
 
 
+@pytest.mark.parametrize("split_entries", [1, 2, 3, SPLIT_M])
+@pytest.mark.parametrize("qlen", [1, 5])
+@pytest.mark.parametrize("window,start", [(None, False), (10, True)],
+                         ids=["full", "window-start"])
+@pytest.mark.parametrize("pool", ["f32", "int8"])
+def test_verify_split_model_matches_dense_and_decode(pool, window, start,
+                                                     qlen, split_entries):
+    """The split model of verify (kernels B4/B5) equals the dense verify
+    plain version up to f32 reordering, with lens on and beside split
+    boundaries; and row 0 of it — all of it at Q = 1 — equals the split
+    model of decode at the same lens bit for bit, as the kernels must."""
+    int8 = pool == "int8"
+    args, kw = split_case(6, int8=int8, qlen=qlen, start=start)
+    kw["window"] = window
+    ver = (paged_attention_verify_int8_dequant_ref if int8
+           else paged_attention_verify_ref)
+    dec = paged_attention_int8_dequant_ref if int8 else paged_attention_ref
+    split = ver(*args, **kw, split_entries=split_entries)
+    torch.testing.assert_close(split, ver(*args, **kw), atol=ATOL, rtol=0)
+    q1 = args[0][:, :, :1].contiguous()
+    d1 = dec(q1, *args[1:], **kw, split_entries=split_entries)
+    assert torch.equal(split[:, :, :1], d1)
+    if qlen == 1:
+        assert torch.equal(split, d1)
+
+
 def test_verify_row_j_is_decode_at_lens_plus_j():
     """Each verify row equals the decode plain version run at that row's
     effective length (the per-row mask contract)."""
@@ -212,8 +241,11 @@ def test_verify_ops_reject_bad_inputs():
                                         _t(lens))
     with pytest.raises(ValueError, match=r"\[B, Hq, 1, D\]"):
         ops.paged_attention(_t(qf), _t(kf), _t(vf), _t(table), _t(lens))
-    assert ops.rows_per_block(16, 5, 128) == 27   # glm4-9b verify, k = 4
-    assert ops.rows_per_block(16, 1, 128) == 16   # glm4-9b decode: 1 chunk
+    # glm4-9b's verify at k = 4 (80 folded rows) and its decode (16) each
+    # run in one row chunk; past a block's 112 rows, balanced chunks
+    assert ops.row_chunks(16, 5, 128) == (80, 1)
+    assert ops.row_chunks(16, 1, 128) == (16, 1)
+    assert ops.row_chunks(16, 8, 128) == (64, 2)
 
 
 # ---------------------------------------------------------------------------
