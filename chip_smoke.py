@@ -10,8 +10,12 @@ Phases (each exits non-zero on failure; none is caught):
    kernel from ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` per source,
    all started together);
 2. hold each kernel against its plain PyTorch version on the card at the
-   shapes glm4-9b's serving path gives it — the int8 GEMM bit-exact (at
-   decode's M = 8 and verify's M = 40), paged decode and verify attention
+   shapes glm4-9b's serving path gives it — the int8 GEMM bit-exact on
+   K-major weights (every projection at M = 1, decode's 8, verify's 40,
+   and the 64-row tile edge 64 and 65; ragged shapes and int32-range
+   biases), with its per-projection times, grids and device time a layer
+   and ``torch._int_mm`` alone as a second yardstick, paged decode and
+   verify attention
    allclose (also with lens on and beside their split boundaries, a window
    starting inside a split and a 4096-key row), verify at Q = 1 and in
    row 0 bit-equal to decode — and the SSD chunked scan
@@ -36,7 +40,9 @@ Phases (each exits non-zero on failure; none is caught):
    launch count set to 0 just before and read just after each run; check
    every request finishes with its token count, the logits are finite, the
    kernels' results agree with the CPU's plain versions on a small input,
-   and spec on gives spec off's greedy tokens on a small input;
+   and spec on gives spec off's greedy tokens on a small input; then time
+   steady-state decode steps on both pool types (host clock, and device
+   time a step with the int8 GEMM's share from ``torch.profiler``);
 4. serve full-width mamba2-2.7b (random bf16 weights, 64 layers) through
    ``LLMEngine(backend="arena")``, its launch counts set to 0 just before
    and read just after; check every request finishes with its token count,
@@ -179,7 +185,7 @@ def split_lens(cfg, blk, pool, top):
     return [0, w - 1, w, w + 1, 2 * w - 1, 2 * w, 2 * w + 1, top]
 
 
-def check_int8_gemm(torch, cfg, slots, verify_rows):
+def check_int8_gemm(torch, cfg, slots, verify_rows, flush):
     from repro_torch.core import quant
     from repro_torch.kernels.int8_gemm import ops
     from repro_torch.kernels.int8_gemm.ref import int8_gemm_ref
@@ -190,47 +196,60 @@ def check_int8_gemm(torch, cfg, slots, verify_rows):
     shapes = {"wq": (d, cfg.n_heads * hd), "wk": (d, cfg.n_kv_heads * hd),
               "wv": (d, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, d),
               "wg": (d, f), "wu": (d, f), "wd": (f, d)}
-    layer = {}
-    for name, (k, n) in shapes.items():
-        w = torch.randint(-127, 128, (k, n), generator=g, device=dev,
-                          dtype=torch.int8)
+
+    def operands(k, n, bias_range=20000):
+        # K-major weights, as quantize_params lays them out on the card
+        w = torch.randint(-127, 128, (n, k), generator=g, device=dev,
+                          dtype=torch.int8).mT
         scale = torch.exp2(-8 - 6 * torch.rand(n, generator=g, device=dev))
         mult, shift = quant.quantize_to_fixed_point(scale)
-        bias = torch.randint(-20000, 20000, (n,), generator=g, device=dev,
-                             dtype=torch.int32)
-        layer[name] = (w, bias, mult.to(torch.int32), shift.to(torch.int32))
+        bias = torch.randint(-bias_range, bias_range, (n,), generator=g,
+                             device=dev, dtype=torch.int32)
+        return w, bias, mult.to(torch.int32), shift.to(torch.int32)
+
+    layer = {name: operands(k, n) for name, (k, n) in shapes.items()}
+    tile_edge = 64                       # the kernel's rows per tile
     xs = {m: torch.randint(-127, 128, (m, max(d, f)), generator=g,
                            device=dev, dtype=torch.int8)
-          for m in (1, slots, verify_rows)}
+          for m in (1, slots, verify_rows, tile_edge, tile_edge + 1)}
+    # ragged shapes (K, N off the 16-byte and tile grids: the byte-wise
+    # loads, zero-filled rows and columns) and biases over the whole int32
+    # range (requantize's large-accumulator branch, acc + bias wrapping)
+    extra = [(m, k, n, operands(k, n, r)) for m, k, n, r in (
+        (3, 30, 7, 20000), (5, 96, 40, 20000), (65, 640, 200, 20000),
+        (slots, 96, 40, 2 ** 31 - 1), (verify_rows, d, 256, 2 ** 31 - 1))]
+    cases = [(f"{name} M={m}", xs[m][:, :w[0].shape[0]].contiguous(), w)
+             for m in xs for name, w in layer.items()]
+    cases += [(f"ragged/bias M={m} K={k} N={n}",
+               torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                             dtype=torch.int8), w) for m, k, n, w in extra]
     n_checked = 0
-    for m, x in xs.items():
-        for name, (w, bias, mult, shift) in layer.items():
-            xk = x[:, :w.shape[0]].contiguous()
-            for act in ("none", "relu", "gelu"):
-                scales = (4.0 / 127, 4.0 / 127) if act == "gelu" else None
-                y = ops.int8_gemm_cuda(xk, w, bias, mult, shift,
-                                       activation=act, act_scales=scales)
-                ref = int8_gemm_ref(xk, w, bias, mult, shift,
-                                    activation=act, act_scales=scales)
-                torch.cuda.synchronize()
-                if not torch.equal(y, ref):
-                    bad = (y != ref).sum().item()
-                    raise AssertionError(
-                        f"int8_gemm {name} M={m} {act}: {bad} outputs differ")
-                n_checked += 1
-    # timing unit: one layer's seven W8A8 projections at M = slots
-    x = xs[slots]
-    args = [(x[:, :w.shape[0]].contiguous(), w, b, mu, sh)
-            for w, b, mu, sh in layer.values()]
+    for label, xk, (w, bias, mult, shift) in cases:
+        for act in ("none", "relu", "gelu"):
+            scales = (4.0 / 127, 4.0 / 127) if act == "gelu" else None
+            y = ops.int8_gemm_cuda(xk, w, bias, mult, shift,
+                                   activation=act, act_scales=scales)
+            ref = int8_gemm_ref(xk, w, bias, mult, shift,
+                                activation=act, act_scales=scales)
+            torch.cuda.synchronize()
+            if not torch.equal(y, ref):
+                bad = (y != ref).sum().item()
+                raise AssertionError(
+                    f"int8_gemm {label} {act}: {bad} outputs differ")
+            n_checked += 1
+
+    def layer_args(m):
+        x = xs[m]
+        return [(x[:, :w.shape[0]].contiguous(), w, b, mu, sh)
+                for w, b, mu, sh in layer.values()]
+
+    # timing unit: one layer's seven W8A8 projections at M = slots, and at
+    # the verify pass's M = slots · (spec_tokens + 1)
+    args, args_v = layer_args(slots), layer_args(verify_rows)
 
     def kernel():
         for a in args:
             ops.int8_gemm_cuda(*a)
-
-    # and at the verify pass's M = slots · (spec_tokens + 1)
-    xv = xs[verify_rows]
-    args_v = [(xv[:, :w.shape[0]].contiguous(), w, b, mu, sh)
-              for w, b, mu, sh in layer.values()]
 
     def kernel_verify():
         for a in args_v:
@@ -240,29 +259,41 @@ def check_int8_gemm(torch, cfg, slots, verify_rows):
         for a in args:
             int8_gemm_ref(*a)
 
-    pad = 32  # torch._int_mm wants more than 16 rows
+    # cuBLASLt's int8 GEMM (torch._int_mm) wants more than 16 rows and B
+    # column-major, which the K-major weights are
+    pad = 32
     lib_args = [(torch.cat([a[0], a[0].new_zeros(pad - slots, a[0].shape[1])]),)
                 + a[1:] for a in args]
-    try:
-        torch._int_mm(*lib_args[0][:2])
-    except RuntimeError:  # cuBLASLt's int8 GEMM may want B column-major
-        lib_args = [(xp, w.t().contiguous().t()) + rest
-                    for xp, w, *rest in lib_args]
 
     def library():
         for xp, w, b, mu, sh in lib_args:
             acc = torch._int_mm(xp, w) + b
             quant.requantize(acc, mu, sh)
 
-    def gemm_bound(m):
+    def library_mm():
+        for xp, w, *_ in lib_args:
+            torch._int_mm(xp, w)
+
+    def gemm_bound(m, names=shapes):
+        ws = [layer[k][0] for k in names]
         nbytes = sum(m * w.shape[0] + w.numel() + 12 * w.shape[1]
-                     + m * w.shape[1] for w, *_ in layer.values())
-        ops_n = sum(2 * m * w.shape[0] * w.shape[1]
-                    for w, *_ in layer.values())
+                     + m * w.shape[1] for w in ws)
+        ops_n = sum(2 * m * w.shape[0] * w.shape[1] for w in ws)
         return bound(nbytes, ops_n, "int8")
 
+    # per projection, with L2 flushed before each call as a step finds it
+    # (holding other weights, clean: the flush reads, so no write-back of
+    # dirty lines lands on the projection's time); grid = blocks launched
+    per_proj = {}
+    for m, a_m in ((slots, args), (verify_rows, args_v)):
+        for name, a in zip(layer, a_m):
+            per_proj[f"{name} M={m}"] = (
+                timed(torch, lambda a=a: ops.int8_gemm_cuda(*a), 20, flush),
+                gemm_bound(m, [name])[0], ops.grid(m, *shapes[name]))
     b_ms, b_by = gemm_bound(slots)
     bv_ms, _ = gemm_bound(verify_rows)
+    dev_ms, dev_ops = device_ms(torch, kernel, flush)
+    dev_v_ms, _ = device_ms(torch, kernel_verify, flush)
     return dict(
         name="int8_gemm", route="cuda",
         source="src/repro_torch/kernels/int8_gemm/csrc/int8_gemm.cu",
@@ -270,9 +301,12 @@ def check_int8_gemm(torch, cfg, slots, verify_rows):
         max_abs_err=0.0, ms=timed(torch, kernel, 20),
         plain_ms=timed(torch, plain, 5), bound_ms=b_ms, bound_by=b_by,
         library_ms=timed(torch, library, 20),
+        library_mm_ms=timed(torch, library_mm, 20),
         shape=f"7 projections of one layer, M={slots} (library: M={pad})",
         cases_checked=n_checked, verify_rows=verify_rows,
-        verify_ms=timed(torch, kernel_verify, 20), verify_bound_ms=bv_ms)
+        verify_ms=timed(torch, kernel_verify, 20), verify_bound_ms=bv_ms,
+        device_ms=dev_ms, device_ops=dev_ops, verify_device_ms=dev_v_ms,
+        per_proj=per_proj)
 
 
 def attention_case(torch, cfg, slots, lens, *, pool_dtype, int8, blk,
@@ -876,6 +910,46 @@ def serve(torch, arch, params, prompts, slots, max_new, **engine_kw):
         launches=counts)
 
 
+def decode_steps(torch, arch, params, slots, reps=25):
+    """Steady-state decode iterations of ``LLMEngine`` (every slot running
+    a 200-token prompt): the host-clock p50 of one step, and a step's device
+    time from ``torch.profiler`` — all kernels, the int8 GEMM's share, and
+    the number of kernels."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import EngineConfig, LLMEngine
+
+    rng = np.random.default_rng(5)
+    eng = LLMEngine(arch, params, EngineConfig(slots=slots, max_len=512,
+                                               block_len=16))
+    for _ in range(slots):
+        eng.add_request(rng.integers(0, arch.cfg.vocab, 200).astype(np.int32),
+                        max_new_tokens=200)
+    for _ in range(12):           # the admissions and the first decodes
+        eng.step()
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    n = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            eng.step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    return dict(step_ms_p50=sorted(walls)[reps // 2],
+                device_ms=sum(dev_us(e) for e in kernels) / n / 1e3,
+                gemm_device_ms=sum(dev_us(e) for e in kernels
+                                   if "int8_gemm" in e.key) / n / 1e3,
+                kernels=sum(e.count for e in kernels) / n)
+
+
 def small_input_agreement(torch, quant):
     """Smoke-size glm4-9b in float32 through the kernels on the card and
     through the plain versions on the CPU: same greedy tokens."""
@@ -1192,9 +1266,14 @@ def main() -> None:
     lens = [0, 1, 17, 64, 130, 255, 400, 544]
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     flush = scratch.zero_
+
+    def read_flush():   # evicts L2 and leaves it clean
+        scratch.view(torch.float32).sum()
+
     mcfg = configs.get_config("mamba2-2.7b")
     rcfg = configs.get_config("recurrentgemma-9b")
-    entries = [check_int8_gemm(torch, cfg, slots, slots * (spec_k + 1)),
+    entries = [check_int8_gemm(torch, cfg, slots, slots * (spec_k + 1),
+                               read_flush),
                check_attention(torch, cfg, slots, blk, lens, flush,
                                int8=False),
                check_attention(torch, cfg, slots, blk, lens, flush,
@@ -1235,6 +1314,21 @@ def main() -> None:
     print(f"kernel int8_gemm at the verify pass's M={gemm['verify_rows']}: "
           f"kernel_ms={gemm['verify_ms']:.4f} "
           f"bound_ms={gemm['verify_bound_ms']:.4f}", flush=True)
+
+    def opt_ms(v):
+        return "not measured" if v is None else f"{v:.4f}"
+
+    print(f"kernel int8_gemm per layer (torch.profiler device time, L2 "
+          f"flushed by a read before each layer): M={slots} "
+          f"{opt_ms(gemm['device_ms'])} ms ({gemm['device_ops']:g} device "
+          f"ops), M={gemm['verify_rows']} {opt_ms(gemm['verify_device_ms'])} "
+          f"ms; {gemm['cases_checked']} cases bit-exact; torch._int_mm "
+          f"alone (the product only, M=32, 7 projections): "
+          f"{gemm['library_mm_ms']:.4f} ms", flush=True)
+    print("kernel int8_gemm per projection (event ms with L2 flushed by a "
+          "read before each call, bound ms, blocks): " + json.dumps(
+              {k: [round(t, 4), round(b, 4), grid]
+               for k, (t, b, grid) in gemm["per_proj"].items()}), flush=True)
     for e in entries[1:5]:
         ctas = e["grid"][0] * e["grid"][1] * e["grid"][2]
         dev = ("not measured" if e["device_ms"] is None
@@ -1317,6 +1411,13 @@ def main() -> None:
                    "paged_attention_verify_int8":
                        runs["int8 spec+prefix"]["launches"][
                            "paged_attention_verify_int8"]}
+    for pool in ("int8", "float"):
+        st = decode_steps(torch, archs[pool], params, slots)
+        print(f"decode steps ({pool} pools, {slots} slots running 200-token "
+              f"prompts): step p50 {st['step_ms_p50']:.2f} ms (host clock), "
+              f"device {st['device_ms']:.3f} ms a step of which int8_gemm "
+              f"{st['gemm_device_ms']:.3f} ms, {st['kernels']:.0f} kernels a "
+              f"step (torch.profiler)", flush=True)
     del params
     torch.cuda.empty_cache()
 

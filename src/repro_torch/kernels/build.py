@@ -165,13 +165,15 @@ def build_all() -> Dict[str, str]:
     return logs
 
 
-def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    """PyTorch's current stream on ``t``'s device, as a C pointer."""
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def stream_ptr(t: torch.Tensor) -> int:
+    """PyTorch's current stream on ``t``'s device (a ``cudaStream_t``; the
+    launch functions take it as ``c_void_p``)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
-def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
-    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+def ptr(t: Optional[torch.Tensor]) -> int:
+    """A tensor's device address for a ``c_void_p`` argument (0: none)."""
+    return 0 if t is None else t.data_ptr()
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype, shape=None) -> None:

@@ -63,6 +63,31 @@ __device__ inline int requantize(int acc, int m, int shift) {
   return min(max(y, -127), 127);
 }
 
+// round_shift and requantize without branches: each case is computed and
+// one is selected, as core/quant.py does with torch.where. The same
+// function; a loop unrolled over several outputs then keeps them all in
+// flight instead of serialising them on the branches (B3's epilogue).
+__device__ __forceinline__ int round_shift_sel(int v, int s) {
+  const int pos = max(s, 1);
+  const int half = shl32(1, pos - 1);
+  const int rounded = sra32(add32(v, mul32(v >= 0 ? 1 : -1, half)), pos);
+  const int left = shl32(v, max(-s, 0));
+  return s > 0 ? rounded : (s == 0 ? v : left);
+}
+
+__device__ __forceinline__ int requantize_sel(int acc, int m, int shift) {
+  const int a = abs32(acc);
+  const int y_small = round_shift_sel(mul32(acc, m), shift);
+  const int bits = __float_as_int((float)a);
+  const int pre = max(((bits >> 23) & 0xFF) - 126 - 15, 0);
+  const int y_big = shift - pre < 0
+                        ? (acc >= 0 ? 127 : -127)
+                        : round_shift_sel(mul32(round_shift_sel(acc, pre), m),
+                                          shift - pre);
+  const int y = a < (1 << 16) ? y_small : y_big;
+  return min(max(y, -127), 127);
+}
+
 // core/ita.py exp2_fixed: 2^(t / 256) in Q8 for t <= 0
 __device__ __forceinline__ int exp2_fixed(int t) {
   int ip = t >> FB;                        // arithmetic shift: floor

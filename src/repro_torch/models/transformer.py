@@ -524,7 +524,11 @@ PAGED_INT8_KV = True
 def quantize_params(params, cfg: ModelConfig):
     """Float params → QuantizedLinearParams tree for the W8A8 serving path
     (one stack entry at a time, so a full-width model quantizes in place of
-    the reference's vmap without a float32 copy of a whole stack)."""
+    the reference's vmap without a float32 copy of a whole stack). Each
+    stack's ``w_q`` [L, K, N] is the transposed view of one contiguous
+    [L, N, K] tensor that the entries are written into, so ``params[i]`` is
+    K-major as the int8 GEMM kernel takes it, and no second copy of a
+    stack's weights is ever held."""
     from repro_torch.kernels.int8_gemm.ops import QuantizedLinearParams
 
     s = attn.ACT_SCALE
@@ -533,15 +537,18 @@ def quantize_params(params, cfg: ModelConfig):
         out = {}
         for name in LINEARS:
             w = p[name]
-            parts = []
-            for wi in w:
+            w_q = torch.empty(w.shape[:-2] + (w.shape[-1], w.shape[-2]),
+                              dtype=torch.int8, device=w.device)
+            consts = []
+            for i, wi in enumerate(w):
                 zero_bias = torch.zeros((wi.shape[-1],), dtype=torch.float32,
                                         device=wi.device)
-                parts.append(QuantizedLinearParams.from_float(
-                    wi.float(), zero_bias, s, s))
+                q = QuantizedLinearParams.from_float(wi.float(), zero_bias,
+                                                     s, s)
+                w_q[i] = q.w_q.mT
+                consts.append((q.bias, q.mult, q.shift))
             out[name] = QuantizedLinearParams(
-                *(torch.stack([getattr(q, f) for q in parts])
-                  for f in ("w_q", "bias", "mult", "shift")))
+                w_q.mT, *(torch.stack(c) for c in zip(*consts)))
         return out
 
     q = {"stacks": [qlayer(st) for st in params["stacks"]]}

@@ -7,7 +7,8 @@ a machine that has only PyTorch::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
-Contracts: the int8 GEMM is bit-exact with ``int8_gemm_ref``; paged
+Contracts: the int8 GEMM is bit-exact with ``int8_gemm_ref`` on K-major
+weights (``w_q`` the transposed view of a contiguous [N, K]); paged
 attention (decode and verify) is allclose with ``paged_attention_ref`` /
 ``paged_attention_int8_dequant_ref`` and their verify versions (f32
 outputs: online-softmax reordering only, 1e-4; bf16 outputs: both sides
@@ -26,10 +27,13 @@ ITA integer softmax with ``int_softmax_ref``; ``int8_attention`` on the card
 equals it on the CPU bit for bit.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import bridge, configs
 from repro_torch.core import quant
 from repro_torch.kernels import build
 from repro_torch.kernels.int8_gemm import ops as gemm_ops
@@ -51,6 +55,7 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import (
     pad_to_chunks, ssd_scan_chunked_ref,
 )
+from repro_torch.models import transformer
 
 ACT_SCALES = (4.0 / 127, 4.0 / 127)
 
@@ -67,27 +72,21 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _gemm_operands(m, k, n, seed, dev):
+def _gemm_operands(m, k, n, seed, dev, bias_range=20000):
+    """int8 operands with the weights K-major, as the kernel takes them."""
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randint(-127, 128, (m, k), generator=g, device=dev,
                       dtype=torch.int8)
-    w = torch.randint(-127, 128, (k, n), generator=g, device=dev,
-                      dtype=torch.int8)
-    bias = torch.randint(-20000, 20000, (n,), generator=g, device=dev,
-                         dtype=torch.int32)
+    w = torch.randint(-127, 128, (n, k), generator=g, device=dev,
+                      dtype=torch.int8).mT
+    bias = torch.randint(-bias_range, bias_range, (n,), generator=g,
+                         device=dev, dtype=torch.int32)
     mult, shift = quant.quantize_to_fixed_point(
         torch.exp2(-8 - 6 * torch.rand(n, generator=g, device=dev)))
     return x, w, bias, mult.to(torch.int32), shift.to(torch.int32)
 
 
-@pytest.mark.parametrize("activation", ["none", "relu", "gelu"])
-@pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (8, 4096, 256),
-                                   (8, 13696, 4096), (9, 256, 96),
-                                   (5, 96, 40), (3, 30, 7)])
-def test_int8_gemm_bit_exact(cuda_device, activation, m, k, n):
-    """glm4-9b decode shapes (M = 1 and 8 slots), a second row tile, and
-    K/N not multiples of 4 (the byte-wise path)."""
-    args = _gemm_operands(m, k, n, m + k + n, cuda_device)
+def _gemm_case(args, activation):
     scales = ACT_SCALES if activation == "gelu" else None
     before = gemm_ops.KERNEL.launches
     y = gemm_ops.int8_gemm_cuda(*args, activation=activation,
@@ -98,14 +97,78 @@ def test_int8_gemm_bit_exact(cuda_device, activation, m, k, n):
     assert torch.equal(y, ref), int((y != ref).sum())
 
 
+@pytest.mark.parametrize("activation", ["none", "relu", "gelu"])
+@pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (8, 4096, 256),
+                                   (8, 13696, 4096), (40, 4096, 4096),
+                                   (40, 4096, 256), (40, 13696, 4096),
+                                   (64, 4096, 256), (65, 4096, 256),
+                                   (65, 640, 200), (9, 256, 96),
+                                   (5, 96, 40), (3, 30, 7)])
+def test_int8_gemm_bit_exact(cuda_device, activation, m, k, n):
+    """glm4-9b decode and verify shapes (M = 1, 8 slots, 40 verify rows;
+    wk/wv's N = 256 is the largest split, wd's K = 13696 the k-tile tail),
+    the 64-row tile edge (M = 64, 65: a second row tile in the same
+    launch), ragged N and K, and K/N not multiples of 16 (the byte-wise
+    loads)."""
+    _gemm_case(_gemm_operands(m, k, n, m + k + n, cuda_device), activation)
+
+
+@pytest.mark.parametrize("activation", ["none", "relu", "gelu"])
+@pytest.mark.parametrize("m,k,n", [(8, 96, 40), (40, 4096, 256),
+                                   (3, 30, 7)])
+def test_int8_gemm_large_bias_bit_exact(cuda_device, activation, m, k, n):
+    """Biases over the whole int32 range: every accumulator takes
+    requantize's large-accumulator branch, and acc + bias wraps."""
+    args = _gemm_operands(m, k, n, 7 * m + n, cuda_device,
+                          bias_range=2 ** 31 - 1)
+    _gemm_case(args, activation)
+
+
 def test_int8_gemm_wrapper_checks_inputs(cuda_device):
     x, w, bias, mult, shift = _gemm_operands(4, 64, 32, 0, cuda_device)
     with pytest.raises(ValueError, match="int32"):
         gemm_ops.int8_gemm_cuda(x, w, bias.float(), mult, shift)
-    with pytest.raises(ValueError, match="contiguous"):
-        gemm_ops.int8_gemm_cuda(x, w.t().contiguous().t(), bias, mult, shift)
+    with pytest.raises(ValueError, match="K-major"):
+        gemm_ops.int8_gemm_cuda(x, w.contiguous(), bias, mult, shift)
     with pytest.raises(ValueError, match="CUDA"):
         gemm_ops.int8_gemm_cuda(x.cpu(), w, bias, mult, shift)
+    # the K-major view is taken as it is
+    y = gemm_ops.int8_gemm_cuda(x, w, bias, mult, shift)
+    assert torch.equal(y, int8_gemm_ref(x, w, bias, mult, shift))
+
+
+def test_quantize_params_on_card_k_major_and_never_copied(cuda_device,
+                                                         monkeypatch):
+    """``quantize_params`` on the card yields K-major stacks, and
+    ``int8_gemm`` on a stack entry launches B3 once with the weights'
+    own pointer: nothing copies ``w_q`` on the call path."""
+    cfg = dataclasses.replace(configs.smoke_config("glm4-9b"),
+                              dtype="float32")
+    npp = bridge.numpy_params(transformer.schema(cfg), seed=5)
+    tq = bridge.qparams_from_numpy(npp, cfg, device="cuda")
+    seen = []
+    launch = gemm_ops.KERNEL.launch
+
+    def spy(*args):
+        seen.append(args[1])
+        launch(*args)
+
+    monkeypatch.setattr(gemm_ops.KERNEL, "launch", spy)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    for name in transformer.LINEARS:
+        stack = tq["stacks"][0][name]
+        n_layers, k, n = stack.w_q.shape
+        assert stack.w_q.stride() == (n * k, 1, k), name
+        p = stack[n_layers - 1]
+        x = torch.randint(-127, 128, (2, 3, k), generator=g,
+                          device=cuda_device, dtype=torch.int8)
+        before = gemm_ops.KERNEL.launches
+        y = gemm_ops.int8_gemm(x, p)
+        torch.cuda.synchronize()
+        assert gemm_ops.KERNEL.launches == before + 1, name
+        assert seen[-1] == p.w_q.data_ptr(), name
+        ref = int8_gemm_ref(x.reshape(6, k), p.w_q, p.bias, p.mult, p.shift)
+        assert torch.equal(y.reshape(6, n), ref), name
 
 
 LENS = [0, 1, 17, 64, 130, 255, 400, 544]

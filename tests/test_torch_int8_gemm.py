@@ -87,6 +87,51 @@ def test_int8_gemm_op_on_cpu_uses_plain_version_with_lead_dims():
     assert tops.KERNEL.launches == before  # the CPU never reaches the kernel
 
 
+@pytest.mark.parametrize("activation", ["none", "relu", "gelu"])
+def test_k_major_params_through_op_match_pallas_kernel(activation):
+    """The weights as the kernel takes them (the transposed view of a
+    contiguous [N, K] tensor) through the port's ``int8_gemm`` on the CPU
+    equal the reference's Pallas kernel bit for bit."""
+    x, w, bias, mult, shift = _operands(16, 256, 128, seed=5)
+    scales = ACT_SCALES if activation == "gelu" else None
+    j = int8_gemm_pallas(*(jnp.asarray(a) for a in (x, w, bias, mult, shift)),
+                         activation=activation, act_scales=scales,
+                         interpret=True)
+    w_t = tops.k_major(torch.from_numpy(w))
+    assert w_t.stride() == (1, 256) and w_t.mT.is_contiguous()
+    p = tops.QuantizedLinearParams(w_t, *_torch_args([bias, mult, shift]))
+    before = tops.KERNEL.launches
+    y = tops.int8_gemm(torch.from_numpy(x).reshape(4, 4, 256), p,
+                       activation=activation, act_scales=scales)
+    assert tops.KERNEL.launches == before
+    np.testing.assert_array_equal(np.asarray(j), y.reshape(16, 128).numpy())
+    assert len(np.unique(np.asarray(j))) > 50
+
+
+def test_quantized_weights_are_k_major():
+    """``from_float``, ``quantize_params`` (through
+    ``bridge.qparams_from_numpy``) and a stack entry ``params[i]`` all give
+    the layout the kernel takes, so no call copies the weights."""
+    rng = np.random.default_rng(4)
+    w = torch.from_numpy((rng.standard_normal((64, 48)) * 0.1
+                          ).astype(np.float32))
+    q = tops.QuantizedLinearParams.from_float(w, torch.zeros(48), 0.05, 0.02)
+    assert q.w_q.shape == (64, 48) and q.w_q.stride() == (1, 64)
+
+    cfg = dataclasses.replace(tconfigs.smoke_config("glm4-9b"),
+                              dtype="float32")
+    npp = bridge.numpy_params(ttransformer.schema(cfg), seed=12)
+    tq = bridge.qparams_from_numpy(npp, cfg, device="cpu")
+    for st in tq["stacks"]:
+        for name in ttransformer.LINEARS:
+            wq = st[name].w_q
+            n_layers, k, n = wq.shape
+            assert wq.stride() == (n * k, 1, k), (name, wq.stride())
+            layer = st[name][n_layers - 1]
+            assert layer.w_q.shape == (k, n) and layer.w_q.stride() == (1, k)
+            assert layer.bias.is_contiguous() and layer.bias.shape == (n,)
+
+
 def test_from_float_and_quantize_params_bit_exact():
     rng = np.random.default_rng(3)
     w = (rng.standard_normal((64, 48)) * 0.1).astype(np.float32)
