@@ -19,8 +19,9 @@ Phases (each exits non-zero on failure; none is caught):
    allclose (also with lens on and beside their split boundaries, a window
    starting inside a split and a 4096-key row), verify at Q = 1 and in
    row 0 bit-equal to decode — and the SSD chunked scan
-   at mamba2-2.7b's widths (S = 1, 5, 129, 512, 2048, with and without the
-   state, and a G = 2 case) allclose, and the RG-LRU scan at
+   at mamba2-2.7b's widths (S = 1, 5, 129, 512, 2048, and a G = 2 case of
+   40 heads a group) allclose, y bit-equal with and without the state, with
+   its device time, CUDA launches and grids a call, and the RG-LRU scan at
    recurrentgemma-9b's width (D = 4096; S = 1 to 2300 and a B = 3 case,
    bf16 and f32 inputs) allclose, the ITA fused attention at each width
    phase 6 runs (glm4-9b's prefill, DINOv2-S, Whisper-Tiny encoder,
@@ -47,7 +48,8 @@ Phases (each exits non-zero on failure; none is caught):
    ``LLMEngine(backend="arena")``, its launch counts set to 0 just before
    and read just after; check every request finishes with its token count,
    one more decode step's logits are finite, and on a small input the card
-   agrees with the CPU and the slot backend with the arena;
+   agrees with the CPU and the slot backend with the arena; then one
+   512-token admission prefill's device time, split into B8 and the rest;
 5. serve full-width recurrentgemma-9b (random bf16 weights, 38 layers: 26
    recurrent, 12 local attention) through ``LLMEngine(backend="arena")``
    with two prompts longer than the 2048-token window, so the ring caches
@@ -81,7 +83,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12,
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32": 495e12,
             # scalar int32 on the CUDA cores: the f32 rate counts an FMA as
             # two on 128 lanes per SM; an SM has 64 INT32 lanes, one each
             "int32": 67e12 / 4}
@@ -134,11 +136,12 @@ def dev_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
-def device_ms(torch, fn, flush, reps: int = 20):
+def device_ms(torch, fn, flush, reps: int = 20, by_op=None):
     """Device time per call from ``torch.profiler``: what ``fn`` puts on
     the card (kernels, memsets), with L2 flushed before each call as in
     ``timed``; the flush's own kernels are left out. Returns (ms or None
-    when the profiler saw no device activity, device ops per call)."""
+    when the profiler saw no device activity, device ops per call), and
+    fills ``by_op`` (a dict, when given) with ms per call by op name."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -159,6 +162,8 @@ def device_ms(torch, fn, flush, reps: int = 20):
             fn()
         torch.cuda.synchronize()
     seen = {k: v for k, v in on_device(prof).items() if k not in skip}
+    if by_op is not None:
+        by_op.update({k: t / reps / 1e3 for k, (t, _) in seen.items()})
     total = sum(t for t, _ in seen.values())
     return (total / reps / 1e3 if total else None,
             sum(c for _, c in seen.values()) / reps)
@@ -545,35 +550,38 @@ def check_ssd_scan(torch, cfg, lengths, main_len):
     """Kernel B8 at mamba2-2.7b's widths (one prompt: B = 1, H = 80, P = 64,
     N = 128, G = 1) against ``ssd_scan_chunked_ref`` over the zero-padded
     sequence: y and the final state allclose (rtol 1e-4, atol 1e-4·max|·|;
-    float32, only the order of additions differs), plus a G = 2 case."""
+    float32, only the order of additions differs), y bit-equal without the
+    state, plus a G = 2 case (40 heads a group). Times per S on the event
+    clock and as ``torch.profiler`` sees the call (device time, by kernel
+    at ``main_len``, and CUDA launches a call), with the grids of its
+    launches."""
     from repro_torch.kernels.ssd_scan import ops
-    from repro_torch.kernels.ssd_scan.ref import (
-        pad_to_chunks, ssd_scan_chunked_ref,
-    )
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_ref
 
     dev = torch.device("cuda")
     d_inner = cfg.expand * cfg.d_model
     h, p, n = d_inner // cfg.ssm_headdim, cfg.ssm_headdim, cfg.ssm_state
 
-    def case(s, g=cfg.ssm_ngroups, heads=h):
+    def case(s, g=cfg.ssm_ngroups):
         gen = torch.Generator(device=dev).manual_seed(SEED + s + g)
         # Δ·A as the model makes it: softplus(dt) · -exp(a_log), a_log = 1
-        dta = -torch.rand((1, heads, s), generator=gen, device=dev) * 2.0
-        x = torch.randn((1, heads, s, p), generator=gen, device=dev)
+        dta = -torch.rand((1, h, s), generator=gen, device=dev) * 2.0
+        x = torch.randn((1, h, s, p), generator=gen, device=dev)
         bm = torch.randn((1, g, s, n), generator=gen, device=dev) * 0.3
         cm = torch.randn((1, g, s, n), generator=gen, device=dev) * 0.3
         return dta, x, bm, cm
 
     def plain(args, s):
-        chunk = min(128, s)
-        y, st = ssd_scan_chunked_ref(*pad_to_chunks(*args, chunk),
-                                     chunk=chunk, return_state=True)
-        return y[:, :, :s], st
+        return ssd_scan_chunked_ref(*args, chunk=min(128, s),
+                                    return_state=True)
+
+    def call(args, s):
+        return ops.ssd_scan_cuda(*args, chunk=min(128, s), return_state=True)
 
     errs = {}
     for s, g in [(s, cfg.ssm_ngroups) for s in lengths] + [(300, 2)]:
-        args = case(s, g, heads=h if g == cfg.ssm_ngroups else 8)
-        y, st = ops.ssd_scan_cuda(*args, chunk=min(128, s), return_state=True)
+        args = case(s, g)
+        y, st = call(args, s)
         y_only = ops.ssd_scan_cuda(*args, chunk=min(128, s))
         want_y, want_st = plain(args, s)
         torch.cuda.synchronize()
@@ -585,33 +593,52 @@ def check_ssd_scan(torch, cfg, lengths, main_len):
         errs[(s, g)] = max((y - want_y).abs().max().item(),
                            (st - want_st).abs().max().item())
     args = case(main_len)
-    kernel_ms = timed(torch, lambda: ops.ssd_scan_cuda(
-        *args, chunk=128, return_state=True), 50)
+    kernel_ms = timed(torch, lambda: call(args, main_len), 50)
     plain_ms = timed(torch, lambda: plain(args, main_len), 20)
-    per_len = {s: timed(torch, lambda a=case(s): ops.ssd_scan_cuda(
-        *a, chunk=min(128, s), return_state=True), 20) for s in lengths}
+    # device time with L2 as a prefill finds it (the inputs just written)
+    by_kernel = {}
+    dev_ms, dev_ops = device_ms(torch, lambda: call(args, main_len),
+                                lambda: None, by_op=by_kernel)
+    per_len = {}
+    for s in lengths:
+        a = case(s)
+        d_ms, d_ops = device_ms(torch, lambda a=a, s=s: call(a, s),
+                                lambda: None)
+        _, launches, grids = ops.plan(1, h, cfg.ssm_ngroups, s, n, p,
+                                      min(128, s), True)
+        per_len[s] = dict(ms=timed(torch, lambda a=a, s=s: call(a, s), 20),
+                          device_ms=d_ms, device_ops=d_ops,
+                          launches=launches, grids=grids)
     # bytes: dta, x, B, C in once; y and the state out once. Operations
     # the function needs per chunk of L rows: C·Bᵀ over τ ≤ t once per
     # group (L·(L+1)·N), and per head scores·x over τ ≤ t (L·(L+1)·P),
-    # C·state and Bᵀ·x (2·L·N·P each)
+    # Bᵀ·x (2·L·N·P) and, past the first chunk (which enters with a zero
+    # state), C·state (2·L·N·P). The kernel runs them as split TF32
+    # (three tensor-core products each); the f32 CUDA-core bound beside
     g = cfg.ssm_ngroups
     nbytes = 4 * (h * main_len * (1 + 2 * p) + 2 * g * main_len * n
                   + h * n * p)
     full, tail = divmod(main_len, 128)
     ops_n = sum(g * rows * (rows + 1) * n
-                + h * (rows * (rows + 1) * p + 4 * rows * n * p)
-                for rows in [128] * full + ([tail] if tail else []))
-    b_ms, b_by = bound(nbytes, ops_n, "f32")
+                + h * (rows * (rows + 1) * p + (4 if c else 2) * rows * n * p)
+                for c, rows in enumerate([128] * full + ([tail] if tail
+                                                         else [])))
+    b_ms, b_by = bound(nbytes, 3 * ops_n, "tf32")
+    _, launches, grids = ops.plan(1, h, g, main_len, n, p, 128, True)
     return dict(
         name="ssd_scan", route="cuda",
         source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         replaces=ops.KERNEL.replaces.split()[0],
         max_abs_err=max(errs.values()), ms=kernel_ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_f32_ms=bound(nbytes, ops_n, "f32")[0],
+        device_ms=dev_ms, device_ops=dev_ops, by_kernel=by_kernel,
+        launches_per_call=launches,
+        grids=grids, main_len=main_len,
         shape=f"B=1 H={h} P={p} N={n} G={cfg.ssm_ngroups} S={main_len} "
               f"chunk=128, state out",
         errs={f"S={s},G={g}": e for (s, g), e in errs.items()},
-        per_len_ms=per_len)
+        per_len=per_len)
 
 
 def check_rglru(torch, cfg, lengths, main_len):
@@ -1093,6 +1120,38 @@ def profile_decode(torch, arch, params, cache, tokens):
                 top={e.key: round(dev_us(e) / 1e3, 4) for e in top})
 
 
+def profile_prefill(torch, arch, params, n_tokens, max_len):
+    """One admission prefill of an ``n_tokens`` prompt (batch 1, as the
+    arena admits one): host wall (synchronized, unprofiled) and device
+    time from ``torch.profiler``, split into B8's launches and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    toks = torch.randint(0, arch.cfg.vocab, (1, n_tokens), generator=gen,
+                         device="cuda")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        arch.prefill(params, toks, max_len)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        arch.prefill(params, toks, max_len)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    b8 = [e for e in kernels if any(
+        k in e.key for k in ("ssd_local_kernel", "ssd_chain_kernel",
+                             "ssd_output_kernel"))]
+    total = sum(dev_us(e) for e in kernels) / 1e3
+    b8_ms = sum(dev_us(e) for e in b8) / 1e3
+    return dict(wall_ms=sorted(walls)[1], device_ms=total, b8_ms=b8_ms,
+                rest_ms=total - b8_ms, b8_launches=sum(e.count for e in b8),
+                kernel_launches=sum(e.count for e in kernels))
+
+
 def small_input_arena(torch, name):
     """``name``'s smoke config in float32 through the arena on the card
     (its kernel: B8 for mamba2-2.7b, B9 for recurrentgemma-9b) and on the
@@ -1296,10 +1355,27 @@ def main() -> None:
               f"({e['bound_by']}) library_ms={lib} "
               f"max_abs_err={e['max_abs_err']} [{e['shape']}]", flush=True)
     ssd, lru, ita, smax = entries[-4:]
-    print(f"kernel ssd_scan max |err| per case: {json.dumps(ssd['errs'])}; "
-          f"kernel ms per S (with state): "
-          f"{json.dumps({s: round(t, 4) for s, t in ssd['per_len_ms'].items()})}",
+
+    def opt_ms(v):
+        return "not measured" if v is None else f"{v:.4f}"
+
+    print(f"kernel ssd_scan max |err| per case: {json.dumps(ssd['errs'])}",
           flush=True)
+    print(f"kernel ssd_scan at S={ssd['main_len']}: "
+          f"device_ms={opt_ms(ssd['device_ms'])} "
+          f"({ssd['device_ops']:g} device ops a call, torch.profiler) "
+          f"event_ms={ssd['ms']:.4f}; {ssd['launches_per_call']} CUDA "
+          f"launches a call, blocks (local, chain, output) "
+          f"{list(ssd['grids'])} for 132 SMs; bound {ssd['bound_ms']:.4f} ms "
+          f"(split TF32: 3 x flops at 495 TF/s), f32 CUDA-core bound "
+          f"{ssd['bound_f32_ms']:.4f} ms; device ms by kernel "
+          f"{json.dumps({k: round(v, 4) for k, v in ssd['by_kernel'].items()})}",
+          flush=True)
+    print("kernel ssd_scan per S (with state; event ms, device ms, CUDA "
+          "launches, blocks): " + json.dumps(
+              {s: [round(v["ms"], 4), opt_ms(v["device_ms"]),
+                   v["launches"], list(v["grids"])]
+               for s, v in ssd["per_len"].items()}), flush=True)
     print(f"kernel rglru max |err| per case: {json.dumps(lru['errs'])}; "
           f"kernel ms per S (B=1, bf16): "
           f"{json.dumps({s: round(t, 4) for s, t in lru['per_len_ms'].items()})}",
@@ -1314,9 +1390,6 @@ def main() -> None:
     print(f"kernel int8_gemm at the verify pass's M={gemm['verify_rows']}: "
           f"kernel_ms={gemm['verify_ms']:.4f} "
           f"bound_ms={gemm['verify_bound_ms']:.4f}", flush=True)
-
-    def opt_ms(v):
-        return "not measured" if v is None else f"{v:.4f}"
 
     print(f"kernel int8_gemm per layer (torch.profiler device time, L2 "
           f"flushed by a read before each layer): M={slots} "
@@ -1457,6 +1530,15 @@ def main() -> None:
           f"{prof['device_ms']:.2f} ms in {prof['kernel_launches']} kernels "
           f"(torch.profiler), device busy share {busy}; device ms by op: "
           f"{json.dumps(prof['top'])}", flush=True)
+    pre = profile_prefill(torch, march, mparams, 512, 512 + max_new)
+    dev = ("not measured" if not pre["device_ms"]
+           else f"{pre['device_ms']:.3f} ms")
+    print(f"mamba2-2.7b admission prefill (one 512-token prompt): host wall "
+          f"{pre['wall_ms']:.2f} ms, device {dev} in "
+          f"{pre['kernel_launches']} kernels (torch.profiler), of which B8 "
+          f"{pre['b8_ms']:.3f} ms in {pre['b8_launches']} CUDA launches "
+          f"({mcfg.n_layers} calls) and the rest {pre['rest_ms']:.3f} ms",
+          flush=True)
     del mparams, r
     torch.cuda.empty_cache()
 

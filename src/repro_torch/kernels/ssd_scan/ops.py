@@ -1,8 +1,7 @@
 """Public op: the Mamba-2 SSD chunked scan (port of ``repro.kernels.ssd_scan.ops``).
 
 The device decides which version runs, as for every kernel of the port: a
-CPU tensor takes the plain version (``ref.ssd_scan_chunked_ref`` over the
-zero-padded sequence), a CUDA tensor launches the Hopper kernel
+CPU tensor takes the plain version (``ref.ssd_scan_chunked_ref``), a CUDA tensor launches the Hopper kernel
 (``csrc/ssd_scan.cu``, which replaces the TPU kernel
 ``repro/kernels/ssd_scan/kernel.py:ssd_scan_pallas``). There is no fallback
 from one to the other.
@@ -15,25 +14,41 @@ reference computes it through the ``xla`` form of the same op.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ssd_scan.ref import (
-    pad_to_chunks, ssd_scan_chunked_ref,
-)
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_ref
 
 _C = ctypes
 KERNEL = build.register(build.CudaKernel(
     "ssd_scan",
     build.CudaLibrary(build.KERNELS_DIR / "ssd_scan" / "csrc" / "ssd_scan.cu"),
     "ssd_scan_launch",
-    [_C.c_void_p] * 6 + [_C.c_int] * 7 + [_C.c_void_p],
+    [_C.c_void_p] * 7 + [_C.c_int] * 7 + [_C.c_void_p],
     replaces="src/repro/kernels/ssd_scan/kernel.py:66 ssd_scan_pallas",
 ))
 
 MAX_CHUNK = 128   # rows of a chunk the kernel stages in shared memory
 MAX_STATE = 128   # state size N the kernel stages in shared memory
+
+
+@functools.lru_cache(maxsize=256)
+def plan(bsz: int, h: int, g: int, s: int, n: int, p: int, chunk: int,
+         return_state: bool):
+    """The kernel's launch plan for one call: (workspace bytes, CUDA
+    launches — 2 with one chunk, 3 with a chain over chunks — and the
+    blocks of the local, chain and output launches)."""
+    key = (bsz, h, g, s, n, p, chunk, return_state)
+    fn = getattr(KERNEL.library.load(), "ssd_scan_plan")
+    fn.argtypes = [_C.c_int] * 8 + [_C.POINTER(_C.c_longlong)]
+    fn.restype = _C.c_int
+    out = (_C.c_longlong * 5)()
+    code = fn(*key, out)
+    if code:
+        raise ValueError(f"ssd_scan kernel: no plan for {key} ({code})")
+    return out[0], out[1], (out[2], out[3], out[4])
 
 
 def _check_shapes(dta, x, b_mat, c_mat):
@@ -55,7 +70,8 @@ def _check_shapes(dta, x, b_mat, c_mat):
 def ssd_scan_cuda(dta, x, b_mat, c_mat, *, chunk: int,
                   return_state: bool = False):
     """Launch the Hopper kernel on float32 CUDA tensors; ``chunk`` ≤ 128
-    and a ragged last chunk is masked in the kernel."""
+    and a ragged last chunk is masked in the kernel. One call is one count
+    of ``KERNEL.launches`` and two or three CUDA launches (``plan``)."""
     bsz, h, s, p = x.shape
     g, n = b_mat.shape[1], b_mat.shape[3]
     if not 1 <= chunk <= MAX_CHUNK or n > MAX_STATE:
@@ -69,9 +85,14 @@ def ssd_scan_cuda(dta, x, b_mat, c_mat, *, chunk: int,
     state = (torch.empty((bsz, h, n, p), dtype=torch.float32,
                          device=x.device) if return_state else None)
     if bsz and h and p:
+        ws_bytes = plan(bsz, h, g, s, n, p, chunk, return_state)[0]
+        # C·Bᵀ per (batch, group, chunk), the chunks' local and entering
+        # states and decays: no initial contents needed
+        ws = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device)
         KERNEL.launch(build.ptr(dta), build.ptr(x), build.ptr(b_mat),
                       build.ptr(c_mat), build.ptr(y), build.ptr(state),
-                      bsz, h, g, s, n, p, chunk, build.stream_ptr(x))
+                      build.ptr(ws), bsz, h, g, s, n, p, chunk,
+                      build.stream_ptr(x))
     return (y, state) if return_state else y
 
 
@@ -91,10 +112,9 @@ def ssd_scan(dta: torch.Tensor, x: torch.Tensor, b_mat: torch.Tensor,
     chunk = min(chunk, s)
     args = [t.float() for t in (dta, x, b_mat, c_mat)]
     if x.device.type == "cpu":
-        out = ssd_scan_chunked_ref(*pad_to_chunks(*args, chunk), chunk=chunk,
+        out = ssd_scan_chunked_ref(*args, chunk=chunk,
                                    return_state=return_state)
         y, state = out if return_state else (out, None)
-        y = y[:, :, :s]
     elif x.device.type == "cuda":
         out = ssd_scan_cuda(*(t.contiguous() for t in args), chunk=chunk,
                             return_state=return_state)

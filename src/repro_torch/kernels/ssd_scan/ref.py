@@ -3,7 +3,8 @@
 Port of ``repro.kernels.ssd_scan.ref`` (the sequential oracle and the
 one-token decode update) and of ``repro.kernels.ssd_scan.ops._ssd_chunked_xla``
 (the chunked matmul form, einsum for einsum) — the version the Hopper kernel
-(``csrc/ssd_scan.cu``) is held to on the card.
+(``csrc/ssd_scan.cu``) is held to on the card, written in the order the
+kernel computes it.
 
 Layouts are head-major, as in the reference: ``dta`` [B, H, S] (Δ·A, the
 per-step decay log, A < 0 folded in), ``x`` [B, H, S, P] (Δ folded in),
@@ -54,46 +55,52 @@ def ssd_decode_step(state, dta_t, x_t, b_t, c_t):
 
 def ssd_scan_chunked_ref(dta, x, b_mat, c_mat, chunk: int,
                          return_state: bool = False):
-    """The chunked matmul form over whole chunks (``S % chunk == 0``).
+    """The chunked matmul form, in the order the Hopper kernel computes it.
 
-    Mirrors ``_ssd_chunked_xla``: per chunk, s = cumsum(dta); the intra-chunk
-    output ``(C·Bᵀ ∘ exp(s_t − s_τ)[τ ≤ t]) · x``; the inter-chunk output
-    ``exp(s_t)·C·state``; the carried state
-    ``exp(s_L)·state + (B ∘ exp(s_L − s_τ))ᵀ · x``. Returns y [B, H, S, P]
-    in ``x``'s dtype, and the final state [B, H, N, P] float32 when
-    ``return_state``.
+    The algebra of ``_ssd_chunked_xla``, with s = cumsum(dta) in a chunk:
+    1. C·Bᵀ once per (batch, group, chunk), over its lower triangle τ ≤ t;
+    2. every chunk's local state ``Sc = Σ_τ exp(s_L − s_τ)·B_τ x_τᵀ`` and
+       decay ``exp(s_L)``, all chunks at once;
+    3. the chain over chunks in order: the state entering chunk 0 is 0,
+       entering chunk c + 1 it is ``exp(s_L,c)·state_c + Sc_c`` (the last
+       one is the final state);
+    4. ``y = (C·Bᵀ ∘ exp(s_t − s_τ))[τ ≤ t] · x + exp(s_t)·C·state_c``.
+
+    A ragged last chunk acts as the reference's zero padding. Returns y
+    [B, H, S, P] in ``x``'s dtype, and the final state [B, H, N, P] float32
+    when ``return_state``.
     """
     bsz, h, s, p = x.shape
     g, n = b_mat.shape[1], b_mat.shape[-1]
-    if s % chunk:
-        raise ValueError(f"seq {s} not divisible by chunk {chunk}")
-    nc = s // chunk
-    dta_c = dta.reshape(bsz, h, nc, chunk).float()
-    x_c = x.reshape(bsz, h, nc, chunk, p).float()
-    b_c = _heads(b_mat.reshape(bsz, g, nc, chunk, n).float(), h)
-    c_c = _heads(c_mat.reshape(bsz, g, nc, chunk, n).float(), h)
-    s_a = torch.cumsum(dta_c, dim=-1)                      # [B, H, NC, L]
+    dta_p, x_p, b_p, c_p = pad_to_chunks(dta.float(), x.float(),
+                                         b_mat.float(), c_mat.float(), chunk)
+    nc = x_p.shape[2] // chunk
+    s_a = torch.cumsum(dta_p.reshape(bsz, h, nc, chunk), dim=-1)
+    x_c = x_p.reshape(bsz, h, nc, chunk, p)
+    b_c = b_p.reshape(bsz, g, nc, chunk, n)
+    c_c = c_p.reshape(bsz, g, nc, chunk, n)
     idx = torch.arange(chunk, device=x.device)
     causal = idx[None, :] <= idx[:, None]                  # [L, L], τ ≤ t
+    cb = torch.where(causal, torch.einsum("bgcln,bgcmn->bgclm", c_c, b_c),
+                     0.0)                                  # [B, G, NC, L, L]
+    s_last = s_a[..., -1]                                  # [B, H, NC]
+    w = torch.exp(s_last[..., None] - s_a)
+    local = torch.einsum("bhcln,bhclp->bhcnp", _heads(b_c, h) * w[..., None],
+                         x_c)                              # [B, H, NC, N, P]
+    decay = torch.exp(s_last)
     state = torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
-    ys = []
+    entering = []
     for ci in range(nc):
-        dta_i = s_a[:, :, ci]                              # [B, H, L]
-        x_i, b_i, c_i = x_c[:, :, ci], b_c[:, :, ci], c_c[:, :, ci]
-        delta = dta_i[..., :, None] - dta_i[..., None, :]
-        # exp only where τ ≤ t: above the diagonal delta > 0 may overflow
-        ldec = torch.where(causal, torch.exp(torch.where(causal, delta, 0.0)),
-                           0.0)
-        scores = torch.einsum("bhln,bhmn->bhlm", c_i, b_i) * ldec
-        y_intra = torch.einsum("bhlm,bhmp->bhlp", scores, x_i)
-        y_inter = torch.exp(dta_i)[..., None] * torch.einsum(
-            "bhln,bhnp->bhlp", c_i, state)
-        s_last = dta_i[..., -1]
-        w = torch.exp(s_last[..., None] - dta_i)           # [B, H, L]
-        state = torch.exp(s_last)[..., None, None] * state + torch.einsum(
-            "bhln,bhlp->bhnp", b_i * w[..., None], x_i)
-        ys.append(y_intra + y_inter)
-    y = torch.stack(ys, dim=2).reshape(bsz, h, s, p).to(x.dtype)
+        entering.append(state)
+        state = decay[:, :, ci, None, None] * state + local[:, :, ci]
+    delta = s_a[..., :, None] - s_a[..., None, :]
+    # exp only where τ ≤ t: above the diagonal delta > 0 may overflow
+    ldec = torch.where(causal, torch.exp(torch.where(causal, delta, 0.0)),
+                       0.0)
+    y = torch.einsum("bhclm,bhcmp->bhclp", _heads(cb, h) * ldec, x_c)
+    y = y + torch.exp(s_a)[..., None] * torch.einsum(
+        "bhcln,bhcnp->bhclp", _heads(c_c, h), torch.stack(entering, dim=2))
+    y = y.reshape(bsz, h, nc * chunk, p)[:, :, :s].to(x.dtype)
     return (y, state) if return_state else y
 
 

@@ -492,17 +492,59 @@ def test_ssd_scan_matches_plain_version(cuda_device, s, decay):
 
 @pytest.mark.parametrize("s,chunk", [(64, 32), (100, 32), (37, 64)])
 @pytest.mark.parametrize("h,g,p,n", [(8, 2, 64, 128), (8, 2, 16, 16),
-                                     (6, 3, 100, 20)],
-                         ids=["groups2", "smoke", "ragged-widths"])
+                                     (6, 3, 100, 20), (6, 3, 33, 18)],
+                         ids=["groups2", "smoke", "ragged-widths",
+                              "odd-widths"])
 def test_ssd_scan_groups_and_widths(cuda_device, s, chunk, h, g, p, n):
-    """G = 2 with H/G = 4, the smoke widths (P = N = 16), and P, N that are
-    not multiples of the kernel's tiles; chunks shorter than 128."""
+    """G = 2 with H/G = 4, the smoke widths (P = N = 16), P, N that are not
+    multiples of the kernel's tiles, and P, N that are not multiples of 4
+    (4-byte staging, scalar stores and chain); chunks shorter than 128."""
     args = _ssd_case(cuda_device, s, h=h, g=g, p=p, n=n, decay=0.5)
     y, state = ssd_ops.ssd_scan_cuda(*args, chunk=min(chunk, s),
                                      return_state=True)
     want_y, want_state = _ssd_plain(args, s, chunk)
     _ssd_close(y, want_y)
     _ssd_close(state, want_state)
+
+
+@pytest.mark.parametrize("decay", [0.01, 2.0])
+def test_ssd_scan_long_carry_chain(cuda_device, decay):
+    """S = 4096 at mamba2-2.7b's widths: 32 chunks, so the state is carried
+    through a long chain (Δ·A in (-0.01, 0] keeps it alive to the end)."""
+    args = _ssd_case(cuda_device, 4096, decay=decay)
+    y, state = ssd_ops.ssd_scan_cuda(*args, chunk=128, return_state=True)
+    want_y, want_state = _ssd_plain(args, 4096, 128)
+    _ssd_close(y, want_y)
+    _ssd_close(state, want_state)
+
+
+@pytest.mark.parametrize("s", [129, 512])
+def test_ssd_scan_two_groups_of_40_heads(cuda_device, s):
+    """G = 2 with H/G = 40 at full P and N: each group's C·Bᵀ is formed
+    once and read by 40 heads."""
+    args = _ssd_case(cuda_device, s, g=2)
+    y, state = ssd_ops.ssd_scan_cuda(*args, chunk=128, return_state=True)
+    want_y, want_state = _ssd_plain(args, s, 128)
+    _ssd_close(y, want_y)
+    _ssd_close(state, want_state)
+
+
+@pytest.mark.parametrize("s", [5, 2048])
+def test_ssd_scan_is_deterministic(cuda_device, s):
+    """Two identical calls give the same bits (the carry is combined in
+    chunk order, with no float atomics), and so does a call without the
+    state; one chunk takes two CUDA launches, more take three."""
+    args = _ssd_case(cuda_device, s)
+    y1, st1 = ssd_ops.ssd_scan_cuda(*args, chunk=128, return_state=True)
+    y2, st2 = ssd_ops.ssd_scan_cuda(*args, chunk=128, return_state=True)
+    y3 = ssd_ops.ssd_scan_cuda(*args, chunk=128)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(st1, st2)
+    assert torch.equal(y1, y3)
+    _, launches, grids = ssd_ops.plan(1, 80, 1, s, 128, 64, min(128, s),
+                                      True)
+    assert launches == (2 if s <= 128 else 3)
+    assert grids[2] == 80 * -(-s // 128)
 
 
 def test_ssd_scan_op_dispatches_by_device(cuda_device):

@@ -4,9 +4,9 @@ The same numpy inputs go through the JAX package's Pallas kernel
 (``ssd_scan_pallas``, interpret mode, on the zero-padded sequence where S
 is ragged, as the reference's ``xla`` path pads it), its ``xla`` chunked form
 (``_ssd_chunked_xla``, with the carried state) and its sequential oracle,
-and through the port's ``ssd_scan`` on the CPU (``ssd_scan_chunked_ref``
-over the zero-padded sequence — the version the Hopper kernel is held to on
-the card). Float32 throughout; the chunked and sequential forms add in
+and through the port's ``ssd_scan`` on the CPU (``ssd_scan_chunked_ref``,
+the version the Hopper kernel is held to on the card, written in the
+kernel's order). Float32 throughout; the chunked and sequential forms add in
 different orders, so the tolerance is ``rtol = 1e-4`` and
 ``atol = 1e-4 · max|y|`` (the reference's own tests use 2e-4 / 2e-5).
 """
@@ -74,20 +74,28 @@ def test_scan_matches_xla_form_with_state(s, chunk, g):
 
 
 @pytest.mark.parametrize("g", [1, 2])
-@pytest.mark.parametrize("s,chunk", [(64, 32), (192, 64), (128, 64)])
+@pytest.mark.parametrize("s,chunk", [(64, 32), (192, 64), (128, 64), (5, 5),
+                                     (32, 32), (100, 32), (128, 32)])
 def test_chunked_ref_matches_pallas_kernel(s, chunk, g):
-    """The plain chunked form against the Pallas kernel body itself
-    (interpret mode), on whole chunks as the kernel requires."""
+    """The plain chunked form (the kernel's order: C·Bᵀ once per group, the
+    local states of all chunks, the carry chain, the inter-chunk term)
+    against the Pallas kernel body itself (interpret mode) and against
+    ``_ssd_chunked_xla`` with the state, both on the zero-padded sequence
+    as the kernel requires: whole chunks, S < 32 as one chunk, S = one
+    chunk and a ragged last chunk."""
     arrays = inputs(s, g, seed=s + chunk + g)
-    want = ssd_scan_pallas(*map(jnp.asarray, arrays), chunk=chunk,
-                           interpret=True)
+    padded = [jnp.asarray(a) for a in pad_to_chunks(*torch_args(arrays),
+                                                    chunk)]
+    want = ssd_scan_pallas(*padded, chunk=chunk, interpret=True)
     got = ssd_scan_chunked_ref(*torch_args(arrays), chunk=chunk)
-    close(got.numpy(), want)
-    _, jstate = _ssd_chunked_xla(*map(jnp.asarray, arrays), chunk=chunk,
-                                 return_state=True)
-    _, state = ssd_scan_chunked_ref(*torch_args(arrays), chunk=chunk,
+    assert got.shape == (2, 4, s, 16)
+    close(got.numpy(), np.asarray(want)[:, :, :s])
+    jy, jstate = _ssd_chunked_xla(*padded, chunk=chunk, return_state=True)
+    y, state = ssd_scan_chunked_ref(*torch_args(arrays), chunk=chunk,
                                     return_state=True)
+    close(y.numpy(), np.asarray(jy)[:, :, :s])
     close(state.numpy(), jstate)
+    np.testing.assert_array_equal(got.numpy(), y.numpy())
 
 
 @pytest.mark.parametrize("s,g", [(5, 1), (40, 2)])
