@@ -22,11 +22,14 @@ Phases (each exits non-zero on failure; none is caught):
    at mamba2-2.7b's widths (S = 1, 5, 129, 512, 2048, and a G = 2 case of
    40 heads a group) allclose, y bit-equal with and without the state, with
    its device time, CUDA launches and grids a call, and the RG-LRU scan at
-   recurrentgemma-9b's width (D = 4096; S = 1 to 2300 and a B = 3 case,
-   bf16 and f32 inputs) allclose, the ITA fused attention at each width
-   phase 6 runs (glm4-9b's prefill, DINOv2-S, Whisper-Tiny encoder,
-   MobileBERT) and at a GQA-free case, 64- and 125-key tiles and the
-   saturated causal corner bit-exact, and the ITA integer softmax at each
+   recurrentgemma-9b's width (D = 4096; S = 1 to 2300, 63 / 64 / 65 and
+   192 / 193 at its 64-row tile and ring, and B = 3 at 300 and 2300, bf16
+   and f32 inputs) allclose, with its event and device time per S, the
+   ITA fused attention at each width phase 6 runs (glm4-9b's prefill,
+   DINOv2-S, Whisper-Tiny encoder, MobileBERT; event and device time each)
+   and at a GQA-free case, 64-, 125- and 137-key tiles (causal), a GQA
+   group of 16 at S = 1000 and the saturated causal corner (64- and
+   60-key tiles) bit-exact, and the ITA integer softmax at each
    paper network's per-layer logits (and ragged rows and columns)
    bit-exact; time kernel, plain version, a library
    yardstick where one PyTorch call computes the same function (timed here,
@@ -55,7 +58,8 @@ Phases (each exits non-zero on failure; none is caught):
    with two prompts longer than the 2048-token window, so the ring caches
    wrap; the same checks as phase 4 (small input: recurrentgemma-9b-smoke,
    window 16), and B9 launched once per recurrent layer and admission
-   prefill;
+   prefill; then one 512-token admission prefill's device time, split into
+   B9 and the rest;
 6. the ITA integer path at full width: ``int8_attention`` once per
    attention layer of MobileBERT, the Whisper-Tiny encoder, DINOv2-S and a
    2048-token glm4-9b prompt (bf16 inputs), and ``int_softmax`` once per
@@ -63,7 +67,9 @@ Phases (each exits non-zero on failure; none is caught):
    counts set to 0 just before and read just after each network: B6
    launched once per attention layer, B7 once per paper-network layer,
    every output finite, and on a small input the card's ``int8_attention``
-   and ``int_softmax`` equal the CPU's plain path bit for bit.
+   and ``int_softmax`` equal the CPU's plain path bit for bit; then each
+   network's attention pass again under ``torch.profiler``: its device
+   time and B6's share.
 
 The last lines of stdout are a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -663,7 +669,10 @@ def check_rglru(torch, cfg, lengths, main_len):
         return log_a, u
 
     errs = {}
-    for b, s in [(1, s) for s in lengths] + [(3, 300)]:
+    # lengths at the kernel's 64-row tile (63 / 64 / 65) and past its ring
+    # of three tiles in flight (192 / 193), and B = 3
+    edges = [(1, s) for s in (63, 64, 65, 192, 193)] + [(3, 300), (3, 2300)]
+    for b, s in [(1, s) for s in lengths] + edges:
         for u_dtype in (torch.bfloat16, torch.float32):
             log_a, u = case(b, s, u_dtype)
             h = ops.rglru_cuda(log_a, u)
@@ -685,8 +694,18 @@ def check_rglru(torch, cfg, lengths, main_len):
     log_a, u = case(1, main_len, torch.bfloat16)
     kernel_ms = timed(torch, lambda: ops.rglru_cuda(log_a, u), 50)
     plain_ms = timed(torch, lambda: rglru_ref(log_a, u), 5)
-    per_len = {s: timed(torch, lambda a=case(1, s, torch.bfloat16):
-                        ops.rglru_cuda(*a), 20) for s in lengths}
+    # per S: event ms, device ms (torch.profiler; L2 as a prefill finds it,
+    # the inputs just written), the bytes bound and the launch plan
+    per_len = {}
+    for s in lengths:
+        a = case(1, s, torch.bfloat16)
+        d_ms, _ = device_ms(torch, lambda a=a: ops.rglru_cuda(*a),
+                            lambda: None)
+        p = ops.plan(1, s, d)
+        per_len[s] = dict(
+            ms=timed(torch, lambda a=a: ops.rglru_cuda(*a), 20),
+            device_ms=d_ms, bound_ms=bound(s * d * 8, 7 * s * d, "f32")[0],
+            blocks=p.blocks[0] * p.blocks[1], tiles=p.tiles)
     # bytes: log_a (f32) and u (bf16) in once, h (bf16) out once; per
     # element 2·log_a, β·u, a·h, the add and exp, expm1, sqrt
     n = main_len * d
@@ -697,8 +716,9 @@ def check_rglru(torch, cfg, lengths, main_len):
         replaces=ops.KERNEL.replaces.split()[0],
         max_abs_err=max(errs.values()), ms=kernel_ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        device_ms=per_len[main_len]["device_ms"],
         shape=f"B=1 S={main_len} D={d}, f32 log_a, bf16 u and h",
-        errs=errs, per_len_ms=per_len)
+        errs=errs, per_len=per_len)
 
 
 def ita_inputs(torch, gen, b, hq, hkv, sq, skv, d, *, saturated=False):
@@ -740,6 +760,12 @@ def check_ita_attention(torch, cfg, flush):
         ("block_kv 125", (1, 6, 6, 1000, 64), 125, 125, True, False, real),
         ("saturated", (1, 4, 2, 256, 48), 64, 32, True, True,
          dict(qk_scale=1e-3, v_scale=0.03, out_scale=0.02)),
+        # the redesign's edges: 137-key tiles (padded to 160) causal; a
+        # GQA group of 16 at an S its 16-position blocks do not divide
+        ("block_kv 137 causal", (1, 6, 6, 1370, 64), 137, 137, True, False,
+         real),
+        ("group 16, S 1000", (1, hq, hkv, 1000, hd), 125, 125, True, False,
+         real),
     ]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     n_checked = 0
@@ -758,19 +784,35 @@ def check_ita_attention(torch, cfg, flush):
         if name == "glm4-9b prompt":
             main = (q, k, v, kw)
     # the saturated causal corner: every logit at the exponent floor, so
-    # the skipped tiles above the diagonal would change the result
-    sl, d = 128, 64
-    q = torch.full((1, 1, sl, d), 127, dtype=torch.int8, device="cuda")
-    k = torch.full((1, 1, sl, d), -127, dtype=torch.int8, device="cuda")
-    v = ita_inputs(torch, gen, 1, 1, 1, sl, sl, d, saturated=True)[2]
-    for amax in (1000.0, 10.0):
-        kw = dict(qk_scale=1.0, v_scale=1.0, out_scale=1.0, causal=True,
-                  logit_amax=amax, block_q=64, block_kv=64)
-        if not torch.equal(ops.ita_attention_cuda(q, k, v, **kw),
-                           ita_plain(q, k, v, **kw)):
-            raise AssertionError(f"ita_attention floor corner "
-                                 f"(logit_amax {amax}) differs")
-        n_checked += 1
+    # the skipped tiles above the diagonal would change the result; a
+    # 60-key tile (padded to 64 in the kernel) keeps its padding at p8 = 0
+    d = 64
+    for sl, tile in ((128, 64), (120, 60)):
+        q = torch.full((1, 1, sl, d), 127, dtype=torch.int8, device="cuda")
+        k = torch.full((1, 1, sl, d), -127, dtype=torch.int8, device="cuda")
+        v = ita_inputs(torch, gen, 1, 1, 1, sl, sl, d, saturated=True)[2]
+        for amax in (1000.0, 10.0):
+            kw = dict(qk_scale=1.0, v_scale=1.0, out_scale=1.0, causal=True,
+                      logit_amax=amax, block_q=tile, block_kv=tile)
+            if not torch.equal(ops.ita_attention_cuda(q, k, v, **kw),
+                               ita_plain(q, k, v, **kw)):
+                raise AssertionError(f"ita_attention floor corner (tile "
+                                     f"{tile}, logit_amax {amax}) differs")
+            n_checked += 1
+
+    # each phase-6 width: event and device ms a call, and the launch plan
+    per_width = {}
+    for name, _, nq, nkv, sl, d, causal, blk, _ in ita_widths(cfg):
+        x = ita_inputs(torch, gen, 1, nq, nkv, sl, sl, d)
+        kw = dict(real, causal=causal, block_q=blk, block_kv=blk)
+        d_ms, _ = device_ms(torch, lambda x=x, kw=kw:
+                            ops.ita_attention_cuda(*x, **kw), flush)
+        p = ops.plan(1, nq, nkv, sl, d, blk)
+        per_width[name] = dict(
+            ms=timed(torch, lambda x=x, kw=kw: ops.ita_attention_cuda(
+                *x, **kw), 20, flush),
+            device_ms=d_ms, blocks=p.blocks, warps=p.warps, heads=p.heads,
+            stages=p.stages, smem=p.smem)
 
     q, k, v, kw = main
     kernel_ms = timed(torch, lambda: ops.ita_attention_cuda(q, k, v, **kw),
@@ -784,19 +826,25 @@ def check_ita_attention(torch, cfg, flush):
         qb, kb, vb, is_causal=True), 20, flush)
     # work the mask keeps: row r attends min(r + 1, S) keys when causal.
     # Per kept (row, key) pair: the two int8 products over D (tensor-core
-    # int8), and 26 scalar int32 operations on the CUDA cores: requantize
-    # 9, alpha 3, tile max 1, exponent 2, exp2_fixed 8, p8 2, sum 1
+    # int8), and 20 scalar int32 operations on the CUDA cores in this body
+    # (requantize 7 and its range test 2, tile max 1, exponent 4,
+    # exp2_fixed and p8 5, packing p8 1; ita_attention.cu's header). The
+    # first body's 26 (requantize 9, alpha 3, tile max 1, exponent 2,
+    # exp2_fixed 8, p8 2, sum 1) gives the bound printed beside.
     pairs = hq * s * (s + 1) // 2
-    b_ms, b_by = bound(q.numel() * 2 + k.numel() * 2, 4 * hd * pairs,
-                       "int8", int32=26 * pairs)
+    nbytes = q.numel() * 2 + k.numel() * 2
+    b_ms, b_by = bound(nbytes, 4 * hd * pairs, "int8", int32=20 * pairs)
     return dict(
         name="ita_attention", route="cuda",
         source="src/repro_torch/kernels/ita_attention/csrc/ita_attention.cu",
         replaces=ops.KERNEL.replaces.split()[0],
         max_abs_err=0.0, ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None,
+        bound_26_ms=bound(nbytes, 4 * hd * pairs, "int8",
+                          int32=26 * pairs)[0],
+        device_ms=per_width["glm4-9b prompt"]["device_ms"],
         shape=f"B=1 Hq={hq} Hkv={hkv} S={s} D={hd} causal, 128-row tiles",
-        cases_checked=n_checked, sdpa_ms=sdpa_ms)
+        cases_checked=n_checked, sdpa_ms=sdpa_ms, per_width=per_width)
 
 
 def check_int_softmax(torch, cfg, flush):
@@ -1120,10 +1168,11 @@ def profile_decode(torch, arch, params, cache, tokens):
                 top={e.key: round(dev_us(e) / 1e3, 4) for e in top})
 
 
-def profile_prefill(torch, arch, params, n_tokens, max_len):
+def profile_prefill(torch, arch, params, n_tokens, max_len, kernels):
     """One admission prefill of an ``n_tokens`` prompt (batch 1, as the
     arena admits one): host wall (synchronized, unprofiled) and device
-    time from ``torch.profiler``, split into B8's launches and the rest."""
+    time from ``torch.profiler``, split into the launches of the device
+    kernels named in ``kernels`` (B8's or B9's) and the rest."""
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
@@ -1140,16 +1189,15 @@ def profile_prefill(torch, arch, params, n_tokens, max_len):
                              ProfilerActivity.CUDA]) as prof:
         arch.prefill(params, toks, max_len)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
-    b8 = [e for e in kernels if any(
-        k in e.key for k in ("ssd_local_kernel", "ssd_chain_kernel",
-                             "ssd_output_kernel"))]
-    total = sum(dev_us(e) for e in kernels) / 1e3
-    b8_ms = sum(dev_us(e) for e in b8) / 1e3
-    return dict(wall_ms=sorted(walls)[1], device_ms=total, b8_ms=b8_ms,
-                rest_ms=total - b8_ms, b8_launches=sum(e.count for e in b8),
-                kernel_launches=sum(e.count for e in kernels))
+    on_dev = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")]
+    ours = [e for e in on_dev if any(k in e.key for k in kernels)]
+    total = sum(dev_us(e) for e in on_dev) / 1e3
+    ours_ms = sum(dev_us(e) for e in ours) / 1e3
+    return dict(wall_ms=sorted(walls)[1], device_ms=total, kernel_ms=ours_ms,
+                rest_ms=total - ours_ms,
+                kernel_cuda_launches=sum(e.count for e in ours),
+                kernel_launches=sum(e.count for e in on_dev))
 
 
 def small_input_arena(torch, name):
@@ -1240,6 +1288,8 @@ def ita_path(torch, cfg):
     """Each width's network pass through the public entry points, its
     launch counts set to 0 just before and read just after; inputs are
     drawn beforehand (set-up, outside the timed pass)."""
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch.kernels.build import all_kernels
     from repro_torch.kernels.int_softmax.ops import int_softmax
     from repro_torch.models.attention import LOGIT_AMAX, int8_attention
@@ -1281,7 +1331,21 @@ def ita_path(torch, cfg):
                 or counts["int_softmax"] != len(logits):
             raise AssertionError(f"{name}: launches {counts} for {layers} "
                                  f"layers")
+        # the attention pass again under torch.profiler (after the counts
+        # are read): its device time, and B6's share of it
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for q, k, v in qkv:
+                int8_attention(q, k, v, causal=causal, block_q=blk,
+                               block_kv=blk)
+            torch.cuda.synchronize()
+        on_dev = [e for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA")]
+        b6 = [e for e in on_dev if "ita_attention_kernel" in e.key]
         runs.append(dict(name=name, layers=layers, attn_ms=attn_ms,
+                         device_ms=sum(dev_us(e) for e in on_dev) / 1e3,
+                         b6_device_ms=sum(dev_us(e) for e in b6) / 1e3,
+                         b6_launches=sum(e.count for e in b6),
                          smax_ms=smax_ms if paper else None,
                          shape=f"{hq}/{hkv} heads, S={s}, D={d}, "
                                f"{'causal' if causal else 'bidirectional'}, "
@@ -1376,14 +1440,27 @@ def main() -> None:
               {s: [round(v["ms"], 4), opt_ms(v["device_ms"]),
                    v["launches"], list(v["grids"])]
                for s, v in ssd["per_len"].items()}), flush=True)
-    print(f"kernel rglru max |err| per case: {json.dumps(lru['errs'])}; "
-          f"kernel ms per S (B=1, bf16): "
-          f"{json.dumps({s: round(t, 4) for s, t in lru['per_len_ms'].items()})}",
+    print(f"kernel rglru max |err| per case: {json.dumps(lru['errs'])}",
           flush=True)
+    print("kernel rglru per S (B=1, D=4096, bf16; event ms, device ms "
+          "(torch.profiler), bytes bound ms, blocks of 16 channels for 132 "
+          "SMs, 64-row tiles): " + json.dumps(
+              {s: [round(v["ms"], 4), opt_ms(v["device_ms"]),
+                   round(v["bound_ms"], 4), v["blocks"], v["tiles"]]
+               for s, v in lru["per_len"].items()}), flush=True)
     print(f"kernel ita_attention: {ita['cases_checked']} cases bit-exact; "
-          f"for context, a different function (float SDPA, bf16, causal, "
-          f"kv heads expanded) at the same shape: {ita['sdpa_ms']:.4f} ms",
+          f"bound {ita['bound_ms']:.4f} ms at 20 int32 operations a kept "
+          f"pair ({ita['bound_26_ms']:.4f} ms at the first body's 26); for "
+          f"context, a different function (float SDPA, bf16, causal, kv "
+          f"heads expanded) at the same shape: {ita['sdpa_ms']:.4f} ms",
           flush=True)
+    print("kernel ita_attention per phase-6 width (event ms with L2 flushed, "
+          "device ms (torch.profiler), blocks for 132 SMs, warps a block, "
+          "query heads a block, K/V stages, shared bytes a block): "
+          + json.dumps({k: [round(v["ms"], 4), opt_ms(v["device_ms"]),
+                            v["blocks"], v["warps"], v["heads"], v["stages"],
+                            v["smem"]]
+                        for k, v in ita["per_width"].items()}), flush=True)
     print(f"kernel int_softmax: {smax['cases_checked']} cases bit-exact",
           flush=True)
     gemm = entries[0]
@@ -1530,15 +1607,17 @@ def main() -> None:
           f"{prof['device_ms']:.2f} ms in {prof['kernel_launches']} kernels "
           f"(torch.profiler), device busy share {busy}; device ms by op: "
           f"{json.dumps(prof['top'])}", flush=True)
-    pre = profile_prefill(torch, march, mparams, 512, 512 + max_new)
+    pre = profile_prefill(torch, march, mparams, 512, 512 + max_new,
+                          ("ssd_local_kernel", "ssd_chain_kernel",
+                           "ssd_output_kernel"))
     dev = ("not measured" if not pre["device_ms"]
            else f"{pre['device_ms']:.3f} ms")
     print(f"mamba2-2.7b admission prefill (one 512-token prompt): host wall "
           f"{pre['wall_ms']:.2f} ms, device {dev} in "
           f"{pre['kernel_launches']} kernels (torch.profiler), of which B8 "
-          f"{pre['b8_ms']:.3f} ms in {pre['b8_launches']} CUDA launches "
-          f"({mcfg.n_layers} calls) and the rest {pre['rest_ms']:.3f} ms",
-          flush=True)
+          f"{pre['kernel_ms']:.3f} ms in {pre['kernel_cuda_launches']} CUDA "
+          f"launches ({mcfg.n_layers} calls) and the rest "
+          f"{pre['rest_ms']:.3f} ms", flush=True)
     del mparams, r
     torch.cuda.empty_cache()
 
@@ -1585,6 +1664,20 @@ def main() -> None:
           f"{prof['device_ms']:.2f} ms in {prof['kernel_launches']} kernels "
           f"(torch.profiler), device busy share {busy}; device ms by op: "
           f"{json.dumps(prof['top'])}", flush=True)
+    pre = profile_prefill(torch, rarch, rparams, 512, 512 + max_new,
+                          ("rglru_kernel",))
+    dev = ("not measured" if not pre["device_ms"]
+           else f"{pre['device_ms']:.3f} ms")
+    print(f"recurrentgemma-9b admission prefill (one 512-token prompt): host "
+          f"wall {pre['wall_ms']:.2f} ms, device {dev} in "
+          f"{pre['kernel_launches']} kernels (torch.profiler), of which B9 "
+          f"{pre['kernel_ms']:.3f} ms in {pre['kernel_cuda_launches']} "
+          f"launches ({n_rec} recurrent layers) and the rest "
+          f"{pre['rest_ms']:.3f} ms", flush=True)
+    if pre["kernel_cuda_launches"] != n_rec:
+        raise AssertionError(f"the profiled prefill ran B9 "
+                             f"{pre['kernel_cuda_launches']} times for "
+                             f"{n_rec} recurrent layers")
     del rparams, r
     torch.cuda.empty_cache()
 
@@ -1598,7 +1691,13 @@ def main() -> None:
                 f", {r['layers']} x int_softmax {r['smax_ms']:.2f} ms")
         print(f"ita {r['name']} ({r['shape']}): {r['layers']} x "
               f"int8_attention {r['attn_ms']:.2f} ms per pass{smax}; "
-              f"kernels={json.dumps(r['launches'])}", flush=True)
+              f"kernels={json.dumps(r['launches'])}; profiled pass: device "
+              f"{r['device_ms']:.3f} ms, of which B6 {r['b6_device_ms']:.3f} "
+              f"ms in {r['b6_launches']} launches (torch.profiler)",
+              flush=True)
+        if r["b6_launches"] != r["layers"]:
+            raise AssertionError(f"{r['name']}: the profiled pass ran B6 "
+                                 f"{r['b6_launches']} times")
         main_counts["ita_attention"] += r["launches"]["ita_attention"]
         main_counts["int_softmax"] += r["launches"]["int_softmax"]
 

@@ -15,6 +15,8 @@ that are not a multiple of the kv heads, and sequence lengths that
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -29,13 +31,69 @@ KERNEL = build.register(build.CudaKernel(
     build.CudaLibrary(build.KERNELS_DIR / "ita_attention" / "csrc"
                       / "ita_attention.cu"),
     "ita_attention_launch",
-    [_C.c_void_p] * 4 + [_C.c_int] * 12 + [_C.c_float, _C.c_void_p],
+    [_C.c_void_p] * 4 + [_C.c_int] * 12 + [_C.c_float] + [_C.c_int] * 3
+    + [_C.c_void_p],
     replaces="src/repro/kernels/ita_attention/kernel.py:111 "
              "ita_attention_pallas",
 ))
 
 MAX_BLOCK_KV = 256  # the kernel stages one K and one V tile in shared memory
 MAX_HEAD_DIM = 256
+SMEM_LIMIT = 232448  # shared memory a block can have on sm_90
+
+
+class Plan(NamedTuple):
+    """One launch: ``warps`` warps (4 or 8) a block of 16 query rows each, the
+    block's rows ``heads`` query heads of one kv head at ``positions``
+    positions each (heads · positions = 16 · warps), ``blocks`` blocks; kv
+    tiles padded to ``key_slices`` · 32 keys and D to ``d_slices`` · 32;
+    the kernel instance (``kt``, ``dt``) that holds them, with the scores
+    packed four to a register when ``packed``; ``stages`` K/V tiles in
+    flight and ``smem`` bytes of shared memory a block."""
+    warps: int
+    heads: int
+    positions: int
+    blocks: int
+    key_slices: int
+    d_slices: int
+    kt: int
+    dt: int
+    packed: bool
+    stages: int
+    smem: int
+
+
+def _smem(kpad: int, dp: int, stages: int, warps: int) -> int:
+    """Bytes of the kernel's ``Geo``: K and raw V rings, V^T with its row
+    of ones, and the block's q rows (pitches padded by 16 bytes)."""
+    kp, vp = dp + 16, kpad + 16
+    return 2 * stages * kpad * kp + (dp + 8) * vp + 16 * warps * kp
+
+
+@functools.lru_cache(maxsize=256)
+def plan(b: int, hq: int, hkv: int, sq: int, d: int, bkv: int) -> Plan:
+    """The launch for q [b, hq, sq, d] over kv heads of ``bkv``-key tiles.
+    A block's rows share their kv tiles: as many query heads of a GQA group
+    as it has warps at the same 16 positions, or fewer heads at more
+    positions. 8 warps a block where eight query heads share a kv head
+    (glm4-9b: 8 of 16), else 4: a block of fewer warps stages each tile
+    for fewer rows. Two K/V stages where they fit in shared memory, else
+    one."""
+    group = hq // hkv
+    warps = 8 if group % 8 == 0 else 4
+    heads = max(h for h in (8, 4, 2, 1) if h <= warps and group % h == 0)
+    positions = 16 * warps // heads
+    blocks = b * hq // heads * -(-sq // positions)
+    kpad, dp = -(-bkv // 32) * 32, -(-d // 32) * 32
+    kt = 4 if kpad <= 128 else 8
+    dt = 4 if dp <= 128 else 8
+    stages = 2 if _smem(kpad, dp, 2, warps) <= SMEM_LIMIT else 1
+    smem = _smem(kpad, dp, stages, warps)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"ita_attention kernel: no plan for block_kv {bkv}, "
+                         f"D {d} ({smem} bytes of shared memory)")
+    return Plan(warps, heads, positions, blocks, kpad // 32, dp // 32, kt,
+                dt, kt == 8 or dt == 8, stages, smem)
 
 
 def _check(q, k, v, block_q, block_kv):
@@ -70,10 +128,11 @@ def ita_attention_cuda(q, k, v, *, qk_scale, v_scale, out_scale,
         qk_scale, v_scale, out_scale, logit_amax)
     out = torch.empty_like(q)
     if q.numel():
+        p = plan(b, hq, k.shape[1], sq, d, bkv)
         KERNEL.launch(build.ptr(q), build.ptr(k), build.ptr(v),
                       build.ptr(out), b * hq, group, sq, k.shape[2], d, bq,
                       bkv, int(causal), qk_mult, qk_shift, am, ar, out_mult,
-                      build.stream_ptr(q))
+                      p.warps, p.heads, p.stages, build.stream_ptr(q))
     return out
 
 

@@ -11,6 +11,8 @@ take any ``S ≥ 1``.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -28,6 +30,33 @@ KERNEL = build.register(build.CudaKernel(
 
 # u (and the output) dtypes the kernel takes, with their code in the C call
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+CHANS = 16         # channels a block owns (rglru.cu)
+STEPS = 64         # rows of a staged tile
+STAGES = 4         # depth of its cp.async ring
+GROUP = 4          # channels a compute thread owns in its row
+
+
+class Plan(NamedTuple):
+    """One launch of the kernel: a grid of ``blocks`` = (channel blocks,
+    batch) of ``threads`` threads, each block walking S in ``tiles`` tiles
+    of ``steps`` rows with ``smem`` bytes of shared memory."""
+    blocks: tuple
+    threads: int
+    steps: int
+    tiles: int
+    stages: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=256)
+def plan(b: int, s: int, d: int, u_bytes: int = 2) -> Plan:
+    """The launch for log_a / u [b, s, d] (``u_bytes``: 2 for bf16 u and h,
+    4 for f32): blocks of ``CHANS`` channels, so one recurrentgemma-9b
+    prompt (B = 1, D = 4096) gives 256 blocks, two an SM."""
+    raw = STEPS * CHANS * (4 + u_bytes)
+    return Plan((-(-d // CHANS), b), STEPS * CHANS // GROUP + 32, STEPS,
+                -(-s // STEPS), STAGES, STAGES * raw + 2 * STEPS * CHANS * 8)
 
 
 def _check_shapes(log_a, u):

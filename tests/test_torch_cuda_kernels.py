@@ -635,17 +635,33 @@ def rglru_close(got, want):
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("b,s", [(1, 1), (1, 5), (1, 255), (1, 256),
                                  (1, 257), (1, 512), (1, 2048), (1, 2300),
-                                 (3, 300)])
+                                 (3, 300), (1, 63), (1, 64), (1, 65),
+                                 (1, 191), (1, 192), (1, 193), (3, 2300)])
 def test_rglru_matches_plain_version(cuda_device, b, s, u_dtype):
     """Kernel B9 at recurrentgemma-9b's width: lengths around the TPU
-    kernel's 256-row chunk and the prefetch depth, the model's long
-    prompts, and B = 3."""
+    kernel's 256-row chunk, around the kernel's 64-row tile (63 / 64 / 65)
+    and its ring of four (191 / 192 / 193: the first tile past the three in
+    flight; 255 / 256 / 257: the ring wraps), the model's long prompts, and
+    B = 3 at 300 and 2300."""
     log_a, u = _rglru_case(cuda_device, b, s, u_dtype=u_dtype)
     before = rglru_ops.KERNEL.launches
     h = rglru_ops.rglru_cuda(log_a, u)
     torch.cuda.synchronize()
     assert rglru_ops.KERNEL.launches == before + 1
     assert h.dtype == u_dtype and torch.isfinite(h.float()).all()
+    rglru_close(h, rglru_ref(log_a, u))
+
+
+@pytest.mark.parametrize("u_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,s,d", [(2, 70, 40), (1, 130, 102), (3, 9, 6)])
+def test_rglru_ragged_widths(cuda_device, b, s, d, u_dtype):
+    """Widths the 16-channel blocks do not divide: 40 (a block with two
+    four-channel groups in and two out), 102 and 6 (not a multiple of four:
+    the kernel's unstaged path)."""
+    log_a, u = _rglru_case(cuda_device, b, s, d, u_dtype=u_dtype, seed=d)
+    h = rglru_ops.rglru_cuda(log_a, u)
+    torch.cuda.synchronize()
     rglru_close(h, rglru_ref(log_a, u))
 
 
@@ -732,6 +748,10 @@ def _ita_case(dev, b, hq, hkv, sq, skv, d, *, seed=0, saturated=False):
     (1, 4, 2, 256, 48, 64, 32, True, True),         # saturated, q ≠ kv tile
     (1, 4, 1, 100, 20, 25, 20, True, True),         # D % 4 ≠ 0
     (1, 2, 2, 256, 256, 64, 256, True, False),      # the largest tile
+    (1, 6, 6, 1370, 64, 137, 137, True, False),     # 137-key tiles, causal
+    (1, 32, 2, 1000, 128, 125, 125, True, False),   # group 16, 16 ∤ S
+    (1, 16, 1, 600, 128, 200, 200, True, False),    # scores packed (bkv > 128)
+    (1, 6, 2, 96, 32, 32, 32, True, False),         # group 3: one head a block
 ])
 def test_ita_attention_bit_exact(cuda_device, b, hq, hkv, s, d, bq, bkv,
                                  causal, sat):
@@ -749,17 +769,19 @@ def test_ita_attention_bit_exact(cuda_device, b, hq, hkv, s, d, bq, bkv,
     assert torch.equal(y, want), int((y != want).sum())
 
 
-def test_ita_attention_causal_floor_corner(cuda_device):
+@pytest.mark.parametrize("s,tile", [(128, 64), (120, 60)])
+def test_ita_attention_causal_floor_corner(cuda_device, s, tile):
     """q ≡ 127, k ≡ −127 at logit_amax = 1000 saturate every logit at the
     exponent floor; tiles above the diagonal are skipped per logical q tile
-    (64 rows), as the TPU kernel skips them."""
-    s, d = 128, 64
+    (64 or 60 rows), as the TPU kernel skips them, and the kernel's padding
+    of a 60-key tile to 64 keeps the padded keys at p8 = 0."""
+    d = 64
     q = torch.full((1, 1, s, d), 127, dtype=torch.int8, device=cuda_device)
     k = torch.full((1, 1, s, d), -127, dtype=torch.int8, device=cuda_device)
     v = _ita_case(cuda_device, 1, 1, 1, s, s, d, saturated=True)[2]
     for amax in (1000.0, 10.0):
         kw = dict(qk_scale=1.0, v_scale=1.0, out_scale=1.0, causal=True,
-                  logit_amax=amax, block_q=64, block_kv=64)
+                  logit_amax=amax, block_q=tile, block_kv=tile)
         y = ita_ops.ita_attention_cuda(q, k, v, **kw)
         assert torch.equal(y, ita_plain(q, k, v, **kw))
 

@@ -214,3 +214,39 @@ def test_wrapper_checks_inputs():
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         ops.ita_attention_cuda(q, k[:, :2], v[:, :2], **kw)
     assert ops.KERNEL.launches == 0  # the CPU path never counts a launch
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,bkv,want", [
+    # want: warps, heads, kt, dt, stages
+    (1, 32, 2, 2048, 128, 128, (8, 8, 4, 4, 2)),  # glm4-9b prompt (timed)
+    (1, 4, 4, 128, 128, 128, (4, 1, 4, 4, 2)),    # MobileBERT
+    (1, 6, 6, 1500, 64, 125, (4, 1, 4, 4, 2)),    # Whisper-Tiny encoder
+    (1, 6, 6, 1370, 64, 137, (4, 1, 8, 4, 2)),    # DINOv2-S
+    (1, 32, 2, 1000, 128, 125, (8, 8, 4, 4, 2)),  # 1000 rows: 16 ∤ S
+    (1, 6, 2, 96, 32, 32, (4, 1, 4, 4, 2)),       # group 3
+    (2, 8, 4, 64, 64, 64, (4, 2, 4, 4, 2)),       # group 2
+    (1, 4, 1, 100, 20, 20, (4, 4, 4, 4, 2)),      # D = 20, 20-key tiles
+    (1, 4, 2, 256, 48, 32, (4, 2, 4, 4, 2)),      # D = 48
+    (1, 2, 2, 256, 256, 256, (4, 1, 8, 8, 1)),    # D = 256, 256-key tiles
+])
+def test_plan_routes_every_width(b, hq, hkv, s, d, bkv, want):
+    """B6's launch plan: 16 query rows a warp, 8 warps a block where eight
+    query heads share a kv head, else 4; a block's rows share one kv head
+    (as many heads of the GQA group as the group allows, at the same
+    positions); the blocks cover every row; the kernel instance holds the
+    padded tile (scores packed for 256-key tiles and D = 256); the shared
+    memory stays within a block's limit (two stages where they fit, so
+    D = 256 with 256-key tiles takes one)."""
+    p = ops.plan(b, hq, hkv, s, d, bkv)
+    assert (p.warps, p.heads, p.kt, p.dt, p.stages) == want
+    assert p.heads * p.positions == 16 * p.warps
+    assert (hq // hkv) % p.heads == 0 and p.warps % p.heads == 0
+    assert p.blocks * p.heads * p.positions >= b * hq * s
+    assert p.blocks == b * hq // p.heads * -(-s // p.positions)
+    assert p.key_slices * 32 >= bkv > (p.key_slices - 1) * 32
+    assert p.d_slices * 32 >= d > (p.d_slices - 1) * 32
+    assert p.packed == (p.kt == 8 or p.dt == 8)
+    assert p.smem <= ops.SMEM_LIMIT
+    if (b, hq, s, d) == (1, 32, 2048, 128):
+        # glm4-9b: 512 blocks of 8 heads x 16 positions for 132 SMs
+        assert p.blocks == 512 and p.positions == 16

@@ -116,3 +116,22 @@ def test_op_dispatches_by_device():
         ops.rglru_cuda(la, tu)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         ops.rglru_cuda(la, tu.half())
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_plan_fills_the_card_and_covers_every_length(b):
+    """B9's launch plan at recurrentgemma-9b's width (D = lru_width = 4096):
+    blocks of 16 channels (one prompt: 256 blocks, two an SM), a ring that
+    fits an SM twice, and tiles that cover every prefill length from 1 to
+    2300 without an empty tile."""
+    for u_bytes in (2, 4):
+        p = ops.plan(b, 512, 4096, u_bytes)
+        assert p.blocks == (256, b) and p.blocks[0] * ops.CHANS == 4096
+        assert p.threads == p.steps * ops.CHANS // ops.GROUP + 32 <= 1024
+        assert 2 * p.smem <= 227 * 1024
+    for s in range(1, 2301):
+        p = ops.plan(b, s, 4096)
+        assert (p.tiles - 1) * p.steps < s <= p.tiles * p.steps
+    narrow = ops.plan(b, 7, 96)   # a width the blocks do not divide evenly
+    assert narrow.blocks == (6, b)
+    assert ops.plan(b, 7, 100).blocks == (7, b)
