@@ -30,8 +30,10 @@ Phases (each exits non-zero on failure; none is caught):
    and at a GQA-free case, 64-, 125- and 137-key tiles (causal), a GQA
    group of 16 at S = 1000 and the saturated causal corner (64- and
    60-key tiles) bit-exact, and the ITA integer softmax at each
-   paper network's per-layer logits (and ragged rows and columns)
-   bit-exact; time kernel, plain version, a library
+   paper network's per-layer logits (event and device time, bounds and
+   launch plan each) and at ragged rows and columns, rows at and beside
+   its staged body's limit, a row of 2^22, extreme logits and a view off
+   the 16-byte grid, bit-exact; time kernel, plain version, a library
    yardstick where one PyTorch call computes the same function (timed here,
    never called by the port) and the card's bound; for the paged-attention
    kernels and their yardsticks also the device time a call as
@@ -735,6 +737,22 @@ def ita_inputs(torch, gen, b, hq, hkv, sq, skv, d, *, saturated=False):
             .to(torch.int8) for x in xs]
 
 
+def ita_bound(q, k, causal, ops_a_pair=20, by=False):
+    """B6's bound for q [B, Hq, S, D] over k (and v) [B, Hkv, S, D]: q and
+    the output, k and v in and out once; per kept (row, key) pair the two
+    int8 products over D (tensor-core int8) and ``ops_a_pair`` scalar int32
+    operations on the CUDA cores (20 in this body: requantize 7 and its
+    range test 2, tile max 1, exponent 4, exp2_fixed and p8 5, packing p8
+    1; ita_attention.cu's header; the first body's 26: requantize 9,
+    alpha 3, tile max 1, exponent 2, exp2_fixed 8, p8 2, sum 1). The mask
+    keeps min(r + 1, S) keys of row r when causal, all S when not."""
+    b, hq, s, d = q.shape
+    pairs = b * hq * (s * (s + 1) // 2 if causal else s * s)
+    res = bound(2 * q.numel() + 2 * k.numel(), 4 * d * pairs, "int8",
+                int32=ops_a_pair * pairs)
+    return res if by else res[0]
+
+
 def check_ita_attention(torch, cfg, flush):
     """Kernel B6 at each width phase 6 runs (MobileBERT, Whisper-Tiny
     encoder, DINOv2-S, and the glm4-9b prompt: B = 1, 32 query / 2 kv heads,
@@ -811,8 +829,9 @@ def check_ita_attention(torch, cfg, flush):
         per_width[name] = dict(
             ms=timed(torch, lambda x=x, kw=kw: ops.ita_attention_cuda(
                 *x, **kw), 20, flush),
-            device_ms=d_ms, blocks=p.blocks, warps=p.warps, heads=p.heads,
-            stages=p.stages, smem=p.smem)
+            device_ms=d_ms, bound_ms=ita_bound(x[0], x[1], causal),
+            blocks=p.blocks, warps=p.warps, heads=p.heads, stages=p.stages,
+            smem=p.smem)
 
     q, k, v, kw = main
     kernel_ms = timed(torch, lambda: ops.ita_attention_cuda(q, k, v, **kw),
@@ -824,74 +843,136 @@ def check_ita_attention(torch, cfg, flush):
                   (q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)))
     sdpa_ms = timed(torch, lambda: F.scaled_dot_product_attention(
         qb, kb, vb, is_causal=True), 20, flush)
-    # work the mask keeps: row r attends min(r + 1, S) keys when causal.
-    # Per kept (row, key) pair: the two int8 products over D (tensor-core
-    # int8), and 20 scalar int32 operations on the CUDA cores in this body
-    # (requantize 7 and its range test 2, tile max 1, exponent 4,
-    # exp2_fixed and p8 5, packing p8 1; ita_attention.cu's header). The
-    # first body's 26 (requantize 9, alpha 3, tile max 1, exponent 2,
-    # exp2_fixed 8, p8 2, sum 1) gives the bound printed beside.
-    pairs = hq * s * (s + 1) // 2
-    nbytes = q.numel() * 2 + k.numel() * 2
-    b_ms, b_by = bound(nbytes, 4 * hd * pairs, "int8", int32=20 * pairs)
+    b_ms, b_by = ita_bound(q, k, True, by=True)
     return dict(
         name="ita_attention", route="cuda",
         source="src/repro_torch/kernels/ita_attention/csrc/ita_attention.cu",
         replaces=ops.KERNEL.replaces.split()[0],
         max_abs_err=0.0, ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None,
-        bound_26_ms=bound(nbytes, 4 * hd * pairs, "int8",
-                          int32=26 * pairs)[0],
+        bound_26_ms=ita_bound(q, k, True, ops_a_pair=26),
         device_ms=per_width["glm4-9b prompt"]["device_ms"],
         shape=f"B=1 Hq={hq} Hkv={hkv} S={s} D={hd} causal, 128-row tiles",
         cases_checked=n_checked, sdpa_ms=sdpa_ms, per_width=per_width)
 
 
-def check_int_softmax(torch, cfg, flush):
-    """Kernel B7 at each paper network's per-layer logits (phase 6; DINOv2-S's
-    [6·1370, 1370] is timed) and at ragged rows and columns, bit-exact
-    against ``int_softmax_ref``."""
+# B7's integer instructions a logit in the staged body's loops, shared loads
+# left out (int_softmax.cu's header; counted in the compiled SASS), and the
+# first body's 17 operations (max 1, exponent 4 and exp2_fixed 8 once, sum
+# 1, e * 255 + den / 2 and the divide 3), priced beside
+B7_OPS = 8.2
+B7_OPS_FIRST = 17
+
+
+def smax_logits(torch, gen, r, c, scale):
+    """int8 logits [r, c] on the card: normals of spread 3 quantized at
+    ``scale``."""
+    x = torch.randn((r, c), generator=gen, device="cuda") * 3.0
+    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+
+
+def int_softmax_widths(torch, cfg, flush, read_flush):
+    """B7 at each paper network's per-layer [H·S, S] logits (phase 6):
+    bit-exact against ``int_softmax_ref``; event and device ms a call with
+    L2 flushed before each by ``flush`` (a 256 MB write: L2 starts the call
+    full of dirty lines), device ms with L2 flushed by ``read_flush`` (a
+    read: L2 starts clean); ``Tensor.copy_`` of the same bytes after each
+    flush, a yardstick of the memory path (not the same function); the
+    bounds (bytes; operations at this body's and at the first body's
+    count)."""
     from repro_torch.kernels.int_softmax import ops
     from repro_torch.kernels.int_softmax.ref import int_softmax_ref
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     s_logit = 10.0 / 127
+    per_width = {}
+    for name, _, hq, _, sl, _, _, _, paper in ita_widths(cfg):
+        if not paper:
+            continue
+        x = smax_logits(torch, gen, hq * sl, sl, s_logit)
 
-    def logits(r, c, scale):
-        x = torch.randn((r, c), generator=gen, device="cuda") * 3.0
-        return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+        def call(x=x):
+            return ops.int_softmax_cuda(x, logit_scale=s_logit)
 
-    # each paper network's per-layer [H·S, S] logits (phase 6), then ragged
-    paper = [(hq * sl, sl, s_logit) for _, _, hq, _, sl, _, _, _, on
-             in ita_widths(cfg) if on]
-    n_checked = 0
-    for r, c, scale in paper + [(1001, 999, 0.06), (3, 1, s_logit),
-                                (5, 4099, 60.0), (1, 100003, 0.06)]:
-        x = logits(r, c, scale)
+        if not torch.equal(call(), int_softmax_ref(x, logit_scale=s_logit)):
+            raise AssertionError(f"int_softmax at {name}: "
+                                 f"{tuple(x.shape)} differs")
+        y = torch.empty_like(x)
+        n = x.numel()
+
+        def copy(x=x, y=y):
+            return y.copy_(x)
+
+        per_width[name] = dict(
+            rows=hq * sl, cols=sl, ms=timed(torch, call, 50, flush),
+            device_ms=device_ms(torch, call, flush)[0],
+            device_ms_read=device_ms(torch, call, read_flush)[0],
+            copy_ms=device_ms(torch, copy, flush)[0],
+            copy_ms_read=device_ms(torch, copy, read_flush)[0],
+            bound_bytes_ms=bound(2 * n, 0, "int32")[0],
+            bound_ops_ms=B7_OPS * n / PEAK_OPS["int32"] * 1e3,
+            bound_17_ms=B7_OPS_FIRST * n / PEAK_OPS["int32"] * 1e3)
+    return per_width
+
+
+def check_int_softmax(torch, cfg, flush, read_flush):
+    """Kernel B7 at each paper network's per-layer logits (phase 6; DINOv2-S's
+    [6·1370, 1370] is the entry's), at ragged rows and columns (row starts
+    on every residue mod 16, rows at the staged body's limit and either
+    side of it, one row of 2^22), a row holding -128 and 127, a view off
+    the 16-byte grid and logit scales 0.001 to 60, bit-exact against
+    ``int_softmax_ref``; the per-width times of ``int_softmax_widths`` and
+    the launch plan."""
+    from repro_torch.kernels.int_softmax import ops
+    from repro_torch.kernels.int_softmax.ref import int_softmax_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    s_logit = 10.0 / 127
+    lim = ops.STAGE_COLS
+    # (rows, cols, scale, kind): "extremes" sets each row's first logits to
+    # -128 and 127 (k = 255); "offset" takes the rows from a view 3 bytes
+    # off the 16-byte grid
+    cases = [(1001, 999, 0.06, ""), (3, 1, s_logit, ""),
+             (5, 4099, 60.0, ""), (1, 100003, 0.06, ""),
+             (4001, 333, s_logit, ""), (9, lim - 1, s_logit, ""),
+             (9, lim, 0.06, ""), (9, lim + 1, s_logit, ""),
+             (1, 1 << 22, 0.06, ""), (300, 1370, 0.001, ""),
+             (64, 1370, s_logit, "extremes"), (33, 1370, 60.0, "extremes"),
+             (64, 1370, s_logit, "offset"), (7, 20001, 0.06, "offset")]
+    for r, c, scale, kind in cases:
+        if kind == "offset":
+            x = smax_logits(torch, gen, 1, r * c + 16, scale)[0, 3:3 + r * c]
+            x = x.view(r, c)
+        else:
+            x = smax_logits(torch, gen, r, c, scale)
+        if kind == "extremes":
+            x[:, 0], x[:, -1] = -128, 127
         y = ops.int_softmax_cuda(x, logit_scale=scale)
         want = int_softmax_ref(x, logit_scale=scale)
         torch.cuda.synchronize()
         if not torch.equal(y, want):
-            raise AssertionError(f"int_softmax [{r}, {c}] scale {scale}: "
-                                 f"{int((y != want).sum())} values differ")
-        n_checked += 1
-    x = logits(6 * 1370, 1370, s_logit)
-    kernel_ms = timed(torch, lambda: ops.int_softmax_cuda(
-        x, logit_scale=s_logit), 50, flush)
+            raise AssertionError(f"int_softmax [{r}, {c}] scale {scale} "
+                                 f"{kind}: {int((y != want).sum())} values "
+                                 f"differ")
+    per_width = int_softmax_widths(torch, cfg, flush, read_flush)
+    for v in per_width.values():
+        v["plan"] = ops.plan(v["rows"], v["cols"])._asdict()
+    main = per_width["DINOv2-S"]
+    x = smax_logits(torch, gen, main["rows"], main["cols"], s_logit)
     plain_ms = timed(torch, lambda: int_softmax_ref(x, logit_scale=s_logit),
                      10, flush)
-    # bytes: the int8 logits in, the uint8 probabilities out. Operations:
-    # 17 scalar int32 per element on the CUDA cores (max 1, exponent 4 and
-    # exp2_fixed 8 once, sum 1, e * 255 + den / 2 and the divide 3)
-    b_ms, b_by = bound(2 * x.numel(), 17 * x.numel(), "int32")
+    # bytes: the int8 logits in, the uint8 probabilities out; operations:
+    # B7_OPS scalar int32 an element on the CUDA cores
+    b_ms, b_by = bound(2 * x.numel(), B7_OPS * x.numel(), "int32")
     return dict(
         name="int_softmax", route="cuda",
         source="src/repro_torch/kernels/int_softmax/csrc/int_softmax.cu",
         replaces=ops.KERNEL.replaces.split()[0],
-        max_abs_err=0.0, ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None,
+        max_abs_err=0.0, ms=main["ms"], plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, bound_17_ms=main["bound_17_ms"],
+        device_ms=main["device_ms"],
         shape="[6x1370, 1370] int8 logits (DINOv2-S, one layer)",
-        cases_checked=n_checked)
+        cases_checked=len(cases) + len(per_width), per_width=per_width)
 
 
 # ---------------------------------------------------------------------------
@@ -1409,7 +1490,7 @@ def main() -> None:
                check_rglru(torch, rcfg,
                            [1, 5, 255, 256, 257, 512, 2048, 2300], 512),
                check_ita_attention(torch, cfg, flush),
-               check_int_softmax(torch, cfg, flush)]
+               check_int_softmax(torch, cfg, flush, read_flush)]
     del scratch
     for e in entries:
         lib = ("null" if e["library_ms"] is None
@@ -1422,6 +1503,9 @@ def main() -> None:
 
     def opt_ms(v):
         return "not measured" if v is None else f"{v:.4f}"
+
+    def r5(v):
+        return None if v is None else round(v, 5)
 
     print(f"kernel ssd_scan max |err| per case: {json.dumps(ssd['errs'])}",
           flush=True)
@@ -1455,14 +1539,28 @@ def main() -> None:
           f"heads expanded) at the same shape: {ita['sdpa_ms']:.4f} ms",
           flush=True)
     print("kernel ita_attention per phase-6 width (event ms with L2 flushed, "
-          "device ms (torch.profiler), blocks for 132 SMs, warps a block, "
-          "query heads a block, K/V stages, shared bytes a block): "
+          "device ms (torch.profiler), bound ms at 20 int32 operations a "
+          "kept pair, blocks for 132 SMs, warps a block, query heads a "
+          "block, K/V stages, shared bytes a block): "
           + json.dumps({k: [round(v["ms"], 4), opt_ms(v["device_ms"]),
-                            v["blocks"], v["warps"], v["heads"], v["stages"],
-                            v["smem"]]
+                            round(v["bound_ms"], 4), v["blocks"], v["warps"],
+                            v["heads"], v["stages"], v["smem"]]
                         for k, v in ita["per_width"].items()}), flush=True)
-    print(f"kernel int_softmax: {smax['cases_checked']} cases bit-exact",
-          flush=True)
+    print(f"kernel int_softmax: {smax['cases_checked']} cases bit-exact; "
+          f"bound {smax['bound_ms']:.4f} ms ({smax['bound_by']}) at "
+          f"{B7_OPS} int32 operations an element ({smax['bound_17_ms']:.4f} "
+          f"ms at the first body's {B7_OPS_FIRST})", flush=True)
+    print("kernel int_softmax per phase-6 width (event ms and device ms "
+          "(torch.profiler) with L2 flushed by a write, device ms with L2 "
+          "flushed by a read; Tensor.copy_ of the same bytes: device ms "
+          "after each flush; bytes bound ms, bound ms at "
+          f"{B7_OPS} and at {B7_OPS_FIRST} int32 operations an element; "
+          "plan): " + json.dumps(
+              {k: [round(v["ms"], 4)] + [r5(v[t]) for t in (
+                  "device_ms", "device_ms_read", "copy_ms", "copy_ms_read")]
+               + [round(v[t], 5) for t in ("bound_bytes_ms", "bound_ops_ms",
+                                           "bound_17_ms")] + [v["plan"]]
+               for k, v in smax["per_width"].items()}), flush=True)
     gemm = entries[0]
     print(f"kernel int8_gemm at the verify pass's M={gemm['verify_rows']}: "
           f"kernel_ms={gemm['verify_ms']:.4f} "

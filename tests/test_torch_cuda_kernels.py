@@ -823,24 +823,54 @@ def test_int8_attention_on_card_equals_cpu(cuda_device, dtype):
     assert y.dtype == dtype and torch.equal(y.cpu(), want)
 
 
-@pytest.mark.parametrize("r,c", [(6 * 1370, 1370), (6 * 1500, 1500),
-                                 (4 * 128, 128), (1001, 999), (3, 1),
-                                 (5, 4099), (1, 100003), (256, 128)])
-@pytest.mark.parametrize("scale", [0.06, 10.0 / 127, 60.0])
-def test_int_softmax_bit_exact(cuda_device, r, c, scale):
-    """The paper networks' per-layer logits (DINOv2-S, Whisper-Tiny,
-    MobileBERT), ragged R and C, a long row, and a logit scale whose alpha
-    shift is negative (60)."""
-    g = torch.Generator(device=cuda_device).manual_seed(r + c)
-    x = torch.clamp(torch.round(torch.randn((r, c), generator=g,
-                                            device=cuda_device) * 3.0
-                                / scale), -127, 127).to(torch.int8)
+def _smax_logits(r, c, scale, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.clamp(torch.round(torch.randn((r, c), generator=g,
+                                               device=dev) * 3.0
+                                   / scale), -127, 127).to(torch.int8)
+
+
+def _smax_same(x, scale):
     before = smax_ops.KERNEL.launches
     y = smax_ops.int_softmax_cuda(x, logit_scale=scale)
     torch.cuda.synchronize()
     assert smax_ops.KERNEL.launches == before + 1
     want = int_softmax_ref(x, logit_scale=scale)
     assert torch.equal(y, want), int((y != want).sum())
+
+
+LIM = smax_ops.STAGE_COLS
+
+
+@pytest.mark.parametrize("r,c", [(6 * 1370, 1370), (6 * 1500, 1500),
+                                 (4 * 128, 128), (1001, 999), (3, 1),
+                                 (5, 4099), (1, 100003), (256, 128),
+                                 (4001, 333), (9, LIM - 1), (9, LIM),
+                                 (9, LIM + 1), (1, 1 << 22)])
+@pytest.mark.parametrize("scale", [0.06, 10.0 / 127, 60.0, 0.001])
+def test_int_softmax_bit_exact(cuda_device, r, c, scale):
+    """The paper networks' per-layer logits (DINOv2-S, Whisper-Tiny,
+    MobileBERT), ragged R and C (333: row starts on every residue mod 16
+    over many blocks), rows at the staged body's limit and either side of
+    it, a long row and one of 2^22 (the long body), and logit scales from
+    0.001 to one whose alpha shift is negative (60)."""
+    _smax_same(_smax_logits(r, c, scale, r + c, cuda_device), scale)
+
+
+@pytest.mark.parametrize("r,c", [(64, 1370), (5, 4099), (3, 20001), (40, 7)])
+@pytest.mark.parametrize("scale", [10.0 / 127, 60.0])
+def test_int_softmax_extremes_and_views_off_the_grid(cuda_device, r, c,
+                                                     scale):
+    """Rows holding -128 and 127 (k = m - x reaches 255), and the same
+    logits read from a view 3 bytes off the 16-byte grid (the wrapper
+    copies it; the kernel takes 16-byte aligned rows)."""
+    x = _smax_logits(1, r * c + 16, scale, r * c, cuda_device)[0]
+    x[3::c], x[3 + c - 1::c] = -128, 127
+    view = x[3:3 + r * c].view(r, c)
+    assert view.data_ptr() % 16 == 3
+    assert int(view.min()) == -128 and int(view.max()) == 127
+    _smax_same(view, scale)
+    _smax_same(view.clone(), scale)
 
 
 def test_int_softmax_op_dispatches_by_device(cuda_device):
