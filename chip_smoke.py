@@ -4,11 +4,14 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-Phases (each exits non-zero on failure; none is caught):
+Phases (each prints a start line with the seconds elapsed, and exits
+non-zero on failure; none is caught):
 
 1. print the card (``nvidia-smi`` name and power limit) and build every
    kernel from ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` per source,
-   all started together);
+   all started together; the ITA fused attention's, the longest build,
+   finishes while phases 2-5 run, and its kernel is checked at the start
+   of phase 6);
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes glm4-9b's serving path gives it — the int8 GEMM bit-exact on
    K-major weights (every projection at M = 1, decode's 8, verify's 40,
@@ -24,9 +27,10 @@ Phases (each exits non-zero on failure; none is caught):
    its device time, CUDA launches and grids a call, and the RG-LRU scan at
    recurrentgemma-9b's width (D = 4096; S = 1 to 2300, 63 / 64 / 65 and
    192 / 193 at its 64-row tile and ring, and B = 3 at 300 and 2300, bf16
-   and f32 inputs) allclose, with its event and device time per S, the
-   ITA fused attention at each width phase 6 runs (glm4-9b's prefill,
-   DINOv2-S, Whisper-Tiny encoder, MobileBERT; event and device time each)
+   and f32 inputs) allclose, with its event and device time per S, (at
+   the start of phase 6) the ITA fused attention at each width phase 6
+   runs (glm4-9b's prefill, DINOv2-S, Whisper-Tiny encoder, MobileBERT;
+   event and device time each)
    and at a GQA-free case, 64-, 125- and 137-key tiles (causal), a GQA
    group of 16 at S = 1000 and the saturated causal corner (64- and
    60-key tiles) bit-exact, and the ITA integer softmax at each
@@ -46,7 +50,15 @@ Phases (each exits non-zero on failure; none is caught):
    launch count set to 0 just before and read just after each run; check
    every request finishes with its token count, the logits are finite, the
    kernels' results agree with the CPU's plain versions on a small input,
-   and spec on gives spec off's greedy tokens on a small input; then time
+   and spec on gives spec off's greedy tokens on a small input; chunked
+   prefill (``prefill_chunk_tokens``): on a small input, chunks of one and
+   two blocks with the prefix cache off and on give the CPU's chunked
+   tokens (and, on float pools, the monolithic run's), and at full width
+   a long-prompt workload (14 prompts of 64–512 tokens, 2 of 3000–4000,
+   ``max_len`` 4128) chunked by 512 on int8 and bf16 pools and monolithic
+   on int8 pools, and the shared-prefix workload chunked by 128 with the
+   prefix cache on int8 pools, each with its iteration walls (p50, p99,
+   max), jitter, time to first token and chunks dispatched; then time
    steady-state decode steps on both pool types (host clock, and device
    time a step with the int8 GEMM's share from ``torch.profiler``);
 4. serve full-width mamba2-2.7b (random bf16 weights, 64 layers) through
@@ -61,7 +73,8 @@ Phases (each exits non-zero on failure; none is caught):
    wrap; the same checks as phase 4 (small input: recurrentgemma-9b-smoke,
    window 16), and B9 launched once per recurrent layer and admission
    prefill; then one 512-token admission prefill's device time, split into
-   B9 and the rest;
+   B9 and the rest, its logits and cache bit-equal to an unprofiled
+   prefill's;
 6. the ITA integer path at full width: ``int8_attention`` once per
    attention layer of MobileBERT, the Whisper-Tiny encoder, DINOv2-S and a
    2048-token glm4-9b prompt (bf16 inputs), and ``int_softmax`` once per
@@ -71,7 +84,13 @@ Phases (each exits non-zero on failure; none is caught):
    every output finite, and on a small input the card's ``int8_attention``
    and ``int_softmax`` equal the CPU's plain path bit for bit; then each
    network's attention pass again under ``torch.profiler``: its device
-   time and B6's share.
+   time and B6's share, its outputs bit-equal to the first pass's.
+
+Every ``torch.profiler`` session keeps host-idle margins inside both ends
+(``profiled``): in a few sessions in a hundred the profiler places the
+device records milliseconds early on the host clock, and without the
+margin the first kernels' records fall outside the session and are lost
+(``profiler_loss.py`` counts it).
 
 The last lines of stdout are a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -79,6 +98,7 @@ name and power limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -96,6 +116,16 @@ PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32": 495e12,
             # two on 128 lanes per SM; an SM has 64 INT32 lanes, one each
             "int32": 67e12 / 4}
 SEED = 0
+
+
+T_START = time.perf_counter()
+
+
+def phase(n: int, what: str) -> None:
+    """A phase's start line: if a run fails, the last lines of stdout name
+    the phase it failed in."""
+    print(f"phase {n} ({what}) starts at "
+          f"{time.perf_counter() - T_START:.1f} s", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -138,6 +168,45 @@ def timed(torch, fn, reps: int, flush=None) -> float:
     return total / reps
 
 
+# torch.profiler puts a session's device records on the host clock. In a few
+# sessions in a hundred that placement is early by milliseconds, and the
+# records of the first kernels, now before the session's start, are dropped:
+# the kernels ran (their outputs are bit-equal to an unprofiled pass's and
+# the launch counters are right), but the profiler does not list them.
+# Host-idle time inside both ends of the session keeps every record in it.
+PROFILE_MARGIN_S = 0.05
+
+
+@contextlib.contextmanager
+def profiled(torch):
+    """A ``torch.profiler`` session over CPU and CUDA activity with
+    ``PROFILE_MARGIN_S`` of host-idle time inside each end; the body's work
+    is synchronised before the closing margin."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+
+
+def bit_equal(got, want) -> bool:
+    """Tensors (in dicts, lists and tuples) equal bit for bit."""
+    import torch
+
+    if isinstance(want, dict):
+        return got.keys() == want.keys() and all(
+            bit_equal(got[k], want[k]) for k in want)
+    if isinstance(want, (list, tuple)):
+        return len(got) == len(want) and all(
+            bit_equal(a, b) for a, b in zip(got, want))
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and torch.equal(got.reshape(-1).view(torch.uint8),
+                            want.reshape(-1).view(torch.uint8)))
+
+
 def dev_us(e) -> float:
     """An event's own device time (µs) in ``torch.profiler``'s averages."""
     return getattr(e, "self_device_time_total",
@@ -150,25 +219,19 @@ def device_ms(torch, fn, flush, reps: int = 20, by_op=None):
     ``timed``; the flush's own kernels are left out. Returns (ms or None
     when the profiler saw no device activity, device ops per call), and
     fills ``by_op`` (a dict, when given) with ms per call by op name."""
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-
     def on_device(prof):
         return {e.key: (dev_us(e), e.count) for e in prof.key_averages()
                 if str(e.device_type).endswith("CUDA")}
 
-    with profile(activities=acts) as prof:
+    with profiled(torch) as prof:
         flush()
-        torch.cuda.synchronize()
     skip = set(on_device(prof))
     fn()
     torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
+    with profiled(torch) as prof:
         for _ in range(reps):
             flush()
             fn()
-        torch.cuda.synchronize()
     seen = {k: v for k, v in on_device(prof).items() if k not in skip}
     if by_op is not None:
         by_op.update({k: t / reps / 1e3 for k, (t, _) in seen.items()})
@@ -1000,6 +1063,18 @@ def hybrid_prompts(vocab, seed):
     return [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
 
 
+def long_prompts(vocab, seed):
+    """14 prompts of 64–512 random tokens and 2 of 3000–4000: each long one
+    takes at least 6 chunks of 512 tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = [int(rng.integers(64, 513)) for _ in range(14)]
+    lens[4:4] = [int(rng.integers(3000, 4001))]
+    lens[11:11] = [int(rng.integers(3000, 4001))]
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
+
+
 def shared_prefix_prompts(vocab, n_requests, seed):
     """One shared 256-token prefix plus a per-request 64–256-token suffix
     with period-3 repetition (the n-gram drafter finds trailing matches)."""
@@ -1015,19 +1090,20 @@ def shared_prefix_prompts(vocab, n_requests, seed):
     return out
 
 
-def serve(torch, arch, params, prompts, slots, max_new, **engine_kw):
+def serve(torch, arch, params, prompts, slots, max_new, max_len=None,
+          **engine_kw):
     from repro_torch.kernels.build import all_kernels
-    from repro_torch.serve import EngineConfig, LLMEngine
+    from repro_torch.serve import EngineConfig, LLMEngine, metrics
 
     eng = LLMEngine(arch, params, EngineConfig(
-        slots=slots, max_len=512 + max_new, admit_window=2,
+        slots=slots, max_len=max_len or 512 + max_new, admit_window=2,
         scheduler="bounded", block_len=16, **engine_kw))
     for k in all_kernels():
         k.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     handles = [eng.add_request(p, max_new_tokens=max_new) for p in prompts]
-    eng.run_until_drained()
+    done = eng.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {k.name: k.launches for k in all_kernels()}
@@ -1056,6 +1132,12 @@ def serve(torch, arch, params, prompts, slots, max_new, **engine_kw):
     return dict(
         tokens_per_s=sum(len(r.output) for r in reqs) / wall,
         decode_ms_per_iter_p50=m["iter_wall_p50_ms"],
+        iter_ms_p99=m["iter_wall_p99_ms"],
+        iter_ms_max=max(eng._iter_walls) * 1e3,
+        jitter_ms=m["decode_iter_jitter_ms"],
+        ttft_avg_s=metrics(done)["ttft_avg_s"],
+        chunks=m["prefill_chunks_dispatched"],
+        stalls=m["prefill_chunk_stalls"],
         iterations=m["iterations"], wall_s=wall,
         preemptions=sum(r.preemptions for r in reqs),
         prompt_tokens=int(sum(len(p) for p in prompts)),
@@ -1072,7 +1154,6 @@ def decode_steps(torch, arch, params, slots, reps=25):
     time from ``torch.profiler`` — all kernels, the int8 GEMM's share, and
     the number of kernels."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import EngineConfig, LLMEngine
 
@@ -1092,11 +1173,9 @@ def decode_steps(torch, arch, params, slots, reps=25):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     n = 3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled(torch) as prof:
         for _ in range(n):
             eng.step()
-        torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")]
     return dict(step_ms_p50=sorted(walls)[reps // 2],
@@ -1172,6 +1251,70 @@ def small_input_spec_agreement(torch, quant):
     return same, total
 
 
+def small_input_chunked_agreement(torch, quant):
+    """Smoke-size glm4-9b in float32 on the card with chunked prefill
+    (chunks of one and two blocks, prefix cache off and on), against the
+    CPU's chunked run (≥ 90 % equal greedy tokens) and the card's
+    monolithic run (≥ 90 % on float pools). On int8 pools a chunk boundary
+    is a suffix resume over the dequantized int8 K/V, where a monolithic
+    prefill attends float K/V: a different function in both packages (the
+    near-tie note of ``tests/test_serve_chunked.py``), so there the
+    agreement with the monolithic run is printed beside the CPU's own.
+    Returns {cell: (same as the card's monolithic run, same as the CPU's
+    chunked run, the CPU's chunked run same as its monolithic one, total,
+    chunks dispatched)}."""
+    from repro_torch import bridge, configs
+    from repro_torch.models import registry
+    from repro_torch.serve import EngineConfig, LLMEngine
+
+    import numpy as np
+
+    cfg = dataclasses.replace(configs.smoke_config("glm4-9b"),
+                              dtype="float32", serve_quant=quant)
+    arch = registry.build(cfg)
+    npp = bridge.numpy_params(arch.schema(), seed=SEED)
+    params = {d: bridge.params_from_numpy(npp, d) for d in ("cuda", "cpu")}
+    rng = np.random.default_rng(1)
+    shared = rng.integers(0, cfg.vocab, 16)
+    prompts = [np.concatenate([shared, rng.integers(
+        0, cfg.vocab, int(rng.integers(1, 30)))]).astype(np.int32)
+        for _ in range(6)]
+
+    def run(device, chunk, prefix):
+        eng = LLMEngine(arch, params[device], EngineConfig(
+            slots=4, max_len=64, admit_window=2, block_len=8,
+            prefill_chunk_tokens=chunk, prefix_cache=prefix), device=device)
+        hs = [eng.add_request(p, max_new_tokens=12) for p in prompts]
+        eng.run_until_drained()
+        return ([eng.request(h).output for h in hs],
+                eng.metrics()["prefill_chunks_dispatched"])
+
+    def agree(x, y):
+        return sum(a == b for u, v in zip(x, y) for a, b in zip(u, v))
+
+    cells = {}
+    for prefix in (False, True):
+        mono, _ = run("cuda", None, prefix)
+        cpu_mono, _ = run("cpu", None, prefix)
+        total = sum(len(x) for x in mono)
+        for chunk in (8, 16):
+            label = f"{chunk // 8} block{'s' if chunk > 8 else ''}, cache " \
+                    f"{'on' if prefix else 'off'}"
+            card, chunks = run("cuda", chunk, prefix)
+            cpu, _ = run("cpu", chunk, prefix)
+            same_m, same_c = agree(card, mono), agree(card, cpu)
+            if chunks <= len(prompts):
+                raise AssertionError(f"chunked prefill {label}: "
+                                     f"{chunks:.0f} chunks")
+            if same_c / total < 0.9 or (not quant and same_m / total < 0.9):
+                raise AssertionError(
+                    f"chunked prefill {label}: {same_m}/{total} tokens as "
+                    f"monolithic, {same_c}/{total} as on the CPU")
+            cells[label] = (same_m, same_c, agree(cpu, cpu_mono), total,
+                            int(chunks))
+    return cells
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the Mamba-2 family on the arena backend
 # ---------------------------------------------------------------------------
@@ -1224,8 +1367,6 @@ def profile_decode(torch, arch, params, cache, tokens):
     device's kernel time from ``torch.profiler``, with the ops that take the
     most device time. Device time 0 means the profiler saw no device
     activity (not measured)."""
-    from torch.profiler import ProfilerActivity, profile
-
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -1233,10 +1374,8 @@ def profile_decode(torch, arch, params, cache, tokens):
         arch.decode_step(params, cache, tokens)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled(torch) as prof:
         arch.decode_step(params, cache, tokens)
-        torch.cuda.synchronize()
     avgs = prof.key_averages()
     # kernels are the device-side entries; each host op's self device time
     # is the time of the kernels it launched (the same kernels again)
@@ -1249,13 +1388,15 @@ def profile_decode(torch, arch, params, cache, tokens):
                 top={e.key: round(dev_us(e) / 1e3, 4) for e in top})
 
 
-def profile_prefill(torch, arch, params, n_tokens, max_len, kernels):
+def profile_prefill(torch, arch, params, n_tokens, max_len, kernels,
+                    same_outputs=False):
     """One admission prefill of an ``n_tokens`` prompt (batch 1, as the
     arena admits one): host wall (synchronized, unprofiled) and device
     time from ``torch.profiler``, split into the launches of the device
-    kernels named in ``kernels`` (B8's or B9's) and the rest."""
-    from torch.profiler import ProfilerActivity, profile
-
+    kernels named in ``kernels`` (B8's or B9's) and the rest. With
+    ``same_outputs`` the profiled pass's logits and cache must equal the
+    unprofiled pass's bit for bit: every launch ran, whatever the profiler
+    lists."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     toks = torch.randint(0, arch.cfg.vocab, (1, n_tokens), generator=gen,
                          device="cuda")
@@ -1263,13 +1404,14 @@ def profile_prefill(torch, arch, params, n_tokens, max_len, kernels):
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        arch.prefill(params, toks, max_len)
+        want = arch.prefill(params, toks, max_len)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        arch.prefill(params, toks, max_len)
-        torch.cuda.synchronize()
+    with profiled(torch) as prof:
+        got = arch.prefill(params, toks, max_len)
+    if same_outputs and not bit_equal(got, want):
+        raise AssertionError("the profiled prefill's logits or cache differ "
+                             "from the unprofiled prefill's")
     on_dev = [e for e in prof.key_averages()
               if str(e.device_type).endswith("CUDA")]
     ours = [e for e in on_dev if any(k in e.key for k in kernels)]
@@ -1369,8 +1511,6 @@ def ita_path(torch, cfg):
     """Each width's network pass through the public entry points, its
     launch counts set to 0 just before and read just after; inputs are
     drawn beforehand (set-up, outside the timed pass)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.kernels.build import all_kernels
     from repro_torch.kernels.int_softmax.ops import int_softmax
     from repro_torch.models.attention import LOGIT_AMAX, int8_attention
@@ -1413,13 +1553,15 @@ def ita_path(torch, cfg):
             raise AssertionError(f"{name}: launches {counts} for {layers} "
                                  f"layers")
         # the attention pass again under torch.profiler (after the counts
-        # are read): its device time, and B6's share of it
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for q, k, v in qkv:
-                int8_attention(q, k, v, causal=causal, block_q=blk,
-                               block_kv=blk)
-            torch.cuda.synchronize()
+        # are read): its device time, and B6's share of it; its outputs
+        # equal the first pass's bit for bit (B6 is integer arithmetic), so
+        # every launch ran, whatever the profiler lists
+        with profiled(torch) as prof:
+            again = [int8_attention(q, k, v, causal=causal, block_q=blk,
+                                    block_kv=blk) for q, k, v in qkv]
+        if not bit_equal(again, outs):
+            raise AssertionError(f"{name}: the profiled pass's outputs "
+                                 f"differ from the first pass's")
         on_dev = [e for e in prof.key_averages()
                   if str(e.device_type).endswith("CUDA")]
         b6 = [e for e in on_dev if "ita_attention_kernel" in e.key]
@@ -1432,8 +1574,30 @@ def ita_path(torch, cfg):
                                f"{'causal' if causal else 'bidirectional'}, "
                                f"tiles {blk}",
                          launches=counts))
-        del qkv, logits, outs, probs
+        del qkv, logits, outs, probs, again
     return runs
+
+
+# the kernel whose library builds last; checked at the start of phase 6
+LAST_BUILT = "ita_attention"
+
+
+def print_build(logs, t0) -> None:
+    print(f"built {len(logs)} kernel librar{'ies' if len(logs) > 1 else 'y'}"
+          f" {time.perf_counter() - t0:.1f} s after the builds started",
+          flush=True)
+    for src, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {Path(src).name}: {line.strip()}")
+
+
+def print_entry(e) -> None:
+    lib = "null" if e["library_ms"] is None else f"{e['library_ms']:.4f}"
+    print(f"kernel {e['name']}: kernel_ms={e['ms']:.4f} "
+          f"plain_ms={e['plain_ms']:.4f} bound_ms={e['bound_ms']:.4f} "
+          f"({e['bound_by']}) library_ms={lib} "
+          f"max_abs_err={e['max_abs_err']} [{e['shape']}]", flush=True)
 
 
 def main() -> None:
@@ -1445,7 +1609,9 @@ def main() -> None:
         fail("no CUDA device is visible; this script runs on the card")
     try:
         from repro_torch import configs
-        from repro_torch.kernels.build import all_kernels, build_all
+        from repro_torch.kernels.build import (
+            all_kernels, finish_builds, start_builds,
+        )
         from repro_torch.models import registry, schema
     except ImportError as e:
         fail(f"cannot import the port from {ROOT / 'src'}: {e}")
@@ -1453,18 +1619,18 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     # -- phase 1: the card and the build ------------------------------------
+    phase(1, "the card and the build")
     card = card_line()
     print(f"card: {card}", flush=True)
     t0 = time.perf_counter()
-    logs = build_all()
-    print(f"built {len(logs)} kernel libraries in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for src, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {Path(src).name}: {line.strip()}")
+    # every nvcc starts now; B6's, the longest build by minutes and needed
+    # only in phase 6, finishes while phases 2-5 run
+    pending = start_builds()
+    print_build(finish_builds(pending, [k.name for k in all_kernels()
+                                        if k.name != LAST_BUILT]), t0)
 
     # -- phase 2: kernels vs plain versions ---------------------------------
+    phase(2, "kernels vs plain versions")
     cfg = configs.get_config("glm4-9b")
     slots, blk, max_new, spec_k = 8, 16, 32, 4
     lens = [0, 1, 17, 64, 130, 255, 400, 544]
@@ -1489,17 +1655,11 @@ def main() -> None:
                check_ssd_scan(torch, mcfg, [1, 5, 129, 512, 2048], 512),
                check_rglru(torch, rcfg,
                            [1, 5, 255, 256, 257, 512, 2048, 2300], 512),
-               check_ita_attention(torch, cfg, flush),
                check_int_softmax(torch, cfg, flush, read_flush)]
     del scratch
     for e in entries:
-        lib = ("null" if e["library_ms"] is None
-               else f"{e['library_ms']:.4f}")
-        print(f"kernel {e['name']}: kernel_ms={e['ms']:.4f} "
-              f"plain_ms={e['plain_ms']:.4f} bound_ms={e['bound_ms']:.4f} "
-              f"({e['bound_by']}) library_ms={lib} "
-              f"max_abs_err={e['max_abs_err']} [{e['shape']}]", flush=True)
-    ssd, lru, ita, smax = entries[-4:]
+        print_entry(e)
+    ssd, lru, smax = entries[-3:]
 
     def opt_ms(v):
         return "not measured" if v is None else f"{v:.4f}"
@@ -1532,20 +1692,6 @@ def main() -> None:
               {s: [round(v["ms"], 4), opt_ms(v["device_ms"]),
                    round(v["bound_ms"], 4), v["blocks"], v["tiles"]]
                for s, v in lru["per_len"].items()}), flush=True)
-    print(f"kernel ita_attention: {ita['cases_checked']} cases bit-exact; "
-          f"bound {ita['bound_ms']:.4f} ms at 20 int32 operations a kept "
-          f"pair ({ita['bound_26_ms']:.4f} ms at the first body's 26); for "
-          f"context, a different function (float SDPA, bf16, causal, kv "
-          f"heads expanded) at the same shape: {ita['sdpa_ms']:.4f} ms",
-          flush=True)
-    print("kernel ita_attention per phase-6 width (event ms with L2 flushed, "
-          "device ms (torch.profiler), bound ms at 20 int32 operations a "
-          "kept pair, blocks for 132 SMs, warps a block, query heads a "
-          "block, K/V stages, shared bytes a block): "
-          + json.dumps({k: [round(v["ms"], 4), opt_ms(v["device_ms"]),
-                            round(v["bound_ms"], 4), v["blocks"], v["warps"],
-                            v["heads"], v["stages"], v["smem"]]
-                        for k, v in ita["per_width"].items()}), flush=True)
     print(f"kernel int_softmax: {smax['cases_checked']} cases bit-exact; "
           f"bound {smax['bound_ms']:.4f} ms ({smax['bound_by']}) at "
           f"{B7_OPS} int32 operations an element ({smax['bound_17_ms']:.4f} "
@@ -1593,6 +1739,7 @@ def main() -> None:
           "lens and split-boundary lens)", flush=True)
 
     # -- phase 3: full-width glm4-9b through LLMEngine ----------------------
+    phase(3, "glm4-9b on the paged backend")
     same_f, total_f = small_input_agreement(torch, quant=False)
     same_q, total_q = small_input_agreement(torch, quant=True)
     print(f"small input, card vs CPU greedy tokens: float {same_f}/{total_f}, "
@@ -1601,6 +1748,15 @@ def main() -> None:
     same_q, total_q = small_input_spec_agreement(torch, quant=True)
     print(f"small input on the card, spec on vs off greedy tokens: float "
           f"{same_f}/{total_f}, int8 {same_q}/{total_q}", flush=True)
+    for pool, quant in (("float", False), ("int8", True)):
+        cells = small_input_chunked_agreement(torch, quant)
+        print(f"small input on the card, {pool} pools, chunked prefill "
+              f"(greedy tokens equal to the card's monolithic run / to the "
+              f"CPU's chunked run / the CPU's chunked run to its monolithic "
+              f"one, of all; chunks dispatched): "
+              + "; ".join(f"{k} {m}/{c}/{cm}/{t}, {n} chunks"
+                          for k, (m, c, cm, t, n) in cells.items()),
+              flush=True)
     arch_f = registry.build(dataclasses.replace(cfg, serve_quant=False))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     t0 = time.perf_counter()
@@ -1613,6 +1769,8 @@ def main() -> None:
     archs = {"float": arch_f, "int8": registry.build(cfg)}
     plain = random_prompts(cfg.vocab, n_requests, seed=2)
     shared = shared_prefix_prompts(cfg.vocab, n_requests, seed=4)
+    long = long_prompts(cfg.vocab, seed=10)
+    long_kw = dict(max_len=4096 + max_new)
     runs = {}
     for label, pool, prompts, kw in (
             ("float", "float", plain, {}),
@@ -1622,13 +1780,27 @@ def main() -> None:
              dict(prefix_cache=True, spec_tokens=spec_k)),
             ("int8 prefix", "int8", shared, dict(prefix_cache=True)),
             ("int8 spec+prefix", "int8", shared,
-             dict(prefix_cache=True, spec_tokens=spec_k))):
+             dict(prefix_cache=True, spec_tokens=spec_k)),
+            ("int8 long chunked", "int8", long,
+             dict(long_kw, prefill_chunk_tokens=512)),
+            ("float long chunked", "float", long,
+             dict(long_kw, prefill_chunk_tokens=512)),
+            ("int8 long", "int8", long, long_kw),
+            ("int8 chunked+prefix", "int8", shared,
+             dict(prefix_cache=True, prefill_chunk_tokens=128))):
         r = serve(torch, archs[pool], params, prompts, slots, max_new, **kw)
         runs[label] = r
         print(f"serve {label}: {n_requests} requests x {max_new} tokens "
-              f"({r['prompt_tokens']} prompt tokens), "
+              f"({r['prompt_tokens']} prompt tokens, longest "
+              f"{max(len(p) for p in prompts)}), "
               f"tokens/s={r['tokens_per_s']:.2f} iter_ms(p50)="
-              f"{r['decode_ms_per_iter_p50']:.2f} iterations={r['iterations']:.0f} "
+              f"{r['decode_ms_per_iter_p50']:.2f} iter_ms(p99)="
+              f"{r['iter_ms_p99']:.2f} iter_ms(max)={r['iter_ms_max']:.2f} "
+              f"decode_iter_jitter_ms={r['jitter_ms']:.2f} "
+              f"ttft_avg_s={r['ttft_avg_s']:.4f} "
+              f"iterations={r['iterations']:.0f} "
+              f"prefill_chunks_dispatched={r['chunks']:.0f} "
+              f"prefill_chunk_stalls={r['stalls']:.0f} "
               f"preemptions={r['preemptions']} "
               f"spec_accept_rate={r['spec_accept_rate']:.4f} "
               f"(drafted {r['spec_drafted']:.0f}, accepted {r['spec_accepted']:.0f}) "
@@ -1638,7 +1810,11 @@ def main() -> None:
     need = {"float": ["paged_attention"],
             "int8": ["paged_attention_int8", "int8_gemm"],
             "float spec+prefix": ["paged_attention_verify"],
-            "int8 spec+prefix": ["paged_attention_verify_int8", "int8_gemm"]}
+            "int8 spec+prefix": ["paged_attention_verify_int8", "int8_gemm"],
+            "int8 long chunked": ["paged_attention_int8", "int8_gemm"],
+            "float long chunked": ["paged_attention"],
+            "int8 long": ["paged_attention_int8", "int8_gemm"],
+            "int8 chunked+prefix": ["paged_attention_int8", "int8_gemm"]}
     for label, names in need.items():
         for k in names:
             if runs[label]["launches"][k] == 0:
@@ -1646,9 +1822,16 @@ def main() -> None:
     if runs["float"]["preemptions"] + runs["int8"]["preemptions"] == 0:
         raise AssertionError("no preemption happened")
     for label in ("float prefix", "int8 prefix", "float spec+prefix",
-                  "int8 spec+prefix"):
+                  "int8 spec+prefix", "int8 chunked+prefix"):
         if runs[label]["prefix_cache_hit_rate"] <= 0:
             raise AssertionError(f"{label} run had no prefix-cache hit")
+    # each long prompt takes at least 6 chunks of 512 tokens
+    for label in ("int8 long chunked", "float long chunked"):
+        if runs[label]["chunks"] < 12:
+            raise AssertionError(f"{label} run dispatched "
+                                 f"{runs[label]['chunks']:.0f} chunks")
+    if runs["int8 long"]["chunks"] != 0:
+        raise AssertionError("the monolithic long run dispatched chunks")
     main_counts = {"paged_attention": runs["float"]["launches"]["paged_attention"],
                    "paged_attention_int8":
                        runs["int8"]["launches"]["paged_attention_int8"],
@@ -1670,6 +1853,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- phase 4: full-width mamba2-2.7b through LLMEngine(backend="arena") -
+    phase(4, "mamba2-2.7b on the arena")
     same_m, total_m = small_input_arena(torch, "mamba2-2.7b")
     print(f"small input mamba2-2.7b-smoke: card vs CPU greedy tokens "
           f"{same_m}/{total_m}; on the card slot == arena", flush=True)
@@ -1720,6 +1904,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- phase 5: full-width recurrentgemma-9b through the arena ------------
+    phase(5, "recurrentgemma-9b on the arena")
     same_h, total_h = small_input_arena(torch, "recurrentgemma-9b")
     print(f"small input recurrentgemma-9b-smoke (window 16): card vs CPU "
           f"greedy tokens {same_h}/{total_h}; on the card slot == arena",
@@ -1763,7 +1948,7 @@ def main() -> None:
           f"(torch.profiler), device busy share {busy}; device ms by op: "
           f"{json.dumps(prof['top'])}", flush=True)
     pre = profile_prefill(torch, rarch, rparams, 512, 512 + max_new,
-                          ("rglru_kernel",))
+                          ("rglru_kernel",), same_outputs=True)
     dev = ("not measured" if not pre["device_ms"]
            else f"{pre['device_ms']:.3f} ms")
     print(f"recurrentgemma-9b admission prefill (one 512-token prompt): host "
@@ -1780,6 +1965,27 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- phase 6: the ITA integer path at full width ------------------------
+    phase(6, "the ITA integer path")
+    print_build(finish_builds(pending), t0)
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    ita = check_ita_attention(torch, cfg, scratch.zero_)
+    del scratch
+    entries.insert(-1, ita)
+    print_entry(ita)
+    print(f"kernel ita_attention: {ita['cases_checked']} cases bit-exact; "
+          f"bound {ita['bound_ms']:.4f} ms at 20 int32 operations a kept "
+          f"pair ({ita['bound_26_ms']:.4f} ms at the first body's 26); for "
+          f"context, a different function (float SDPA, bf16, causal, kv "
+          f"heads expanded) at the same shape: {ita['sdpa_ms']:.4f} ms",
+          flush=True)
+    print("kernel ita_attention per phase-6 width (event ms with L2 flushed, "
+          "device ms (torch.profiler), bound ms at 20 int32 operations a "
+          "kept pair, blocks for 132 SMs, warps a block, query heads a "
+          "block, K/V stages, shared bytes a block): "
+          + json.dumps({k: [round(v["ms"], 4), opt_ms(v["device_ms"]),
+                            round(v["bound_ms"], 4), v["blocks"], v["warps"],
+                            v["heads"], v["stages"], v["smem"]]
+                        for k, v in ita["per_width"].items()}), flush=True)
     n_small = small_input_ita(torch)
     print(f"small input ITA: int8_attention and int_softmax card == CPU bit "
           f"for bit ({n_small} values)", flush=True)

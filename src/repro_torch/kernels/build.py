@@ -151,18 +151,37 @@ def all_kernels() -> List[CudaKernel]:
     return list(_REGISTRY.values())
 
 
+def start_builds() -> Dict[Path, tuple]:
+    """Start one ``nvcc`` per kernel source, all at once (nothing for a
+    library already built); returns {source: (library, process or None)}
+    for ``finish_builds``."""
+    libs = {k.library.source: k.library for k in all_kernels()}
+    return {src: (lib, lib.start_build()) for src, lib in libs.items()}
+
+
+def finish_builds(pending: Dict[Path, tuple],
+                  kernels: Optional[Sequence[str]] = None) -> Dict[str, str]:
+    """Wait for the builds of the libraries that ``kernels`` (names; all
+    when None) live in, load them and resolve those kernels; the finished
+    builds leave ``pending``. Returns each finished source's ``-Xptxas -v``
+    log."""
+    logs = {}
+    for k in all_kernels():
+        if kernels is not None and k.name not in kernels:
+            continue
+        entry = pending.pop(k.library.source, None)
+        if entry is not None:
+            lib, proc = entry
+            lib.finish_build(proc)
+            logs[str(lib.source)] = lib.build_log
+        k._resolve()
+    return logs
+
+
 def build_all() -> Dict[str, str]:
     """Compile every library at once (one ``nvcc`` per source, in
     parallel) and load it; returns each source's ``-Xptxas -v`` log."""
-    libs = {k.library.source: k.library for k in all_kernels()}
-    procs = [(lib, lib.start_build()) for lib in libs.values()]
-    logs = {}
-    for lib, proc in procs:
-        lib.finish_build(proc)
-        logs[str(lib.source)] = lib.build_log
-    for k in all_kernels():
-        k._resolve()
-    return logs
+    return finish_builds(start_builds())
 
 
 def stream_ptr(t: torch.Tensor) -> int:

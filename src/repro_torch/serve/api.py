@@ -20,7 +20,9 @@ goes, and admits one request per iteration.
 With ``spec_tokens = k > 0`` the decode pass becomes a verify pass over
 each slot's last token plus up to ``k`` n-gram drafts (``serve.spec``);
 greedy acceptance commits 1..k+1 tokens per slot per iteration, the same
-tokens the plain decode would have produced.
+tokens the plain decode would have produced. With ``prefill_chunk_tokens``
+set (paged backend), admission prefills run as block-aligned chunks that
+share one token budget an iteration, beside the decode pass.
 
 The engine runs on ``cuda`` unless ``device="cpu"`` is passed; with no GPU
 and no explicit device, construction raises.
@@ -66,18 +68,6 @@ def _validate(ec: EngineConfig) -> None:
             f"block pools and rollback rides the paged allocator")
 
 
-def _refuse_unported(ec: EngineConfig, mesh) -> None:
-    """Settings the port does not implement yet fail here, by name."""
-    unported = []
-    if ec.prefill_chunk_tokens is not None:
-        unported.append(f"prefill_chunk_tokens={ec.prefill_chunk_tokens}")
-    if mesh is not None:
-        unported.append("mesh")
-    if unported:
-        raise NotImplementedError(
-            f"not ported to repro_torch yet: {', '.join(unported)}")
-
-
 class LLMEngine:
     """Continuous-batching serve engine with pluggable scheduler/backend."""
 
@@ -91,7 +81,8 @@ class LLMEngine:
         keeps its pools; ``params`` must already live there."""
         ec = config if config is not None else EngineConfig()
         _validate(ec)
-        _refuse_unported(ec, mesh)
+        if mesh is not None:
+            raise NotImplementedError("not ported to repro_torch yet: mesh")
         self.arch = arch
         self.ec = ec
         self.params = params
@@ -110,6 +101,12 @@ class LLMEngine:
         self.slots: List[Optional[Request]] = [None] * ec.slots
         self.iterations = 0
         self.max_concurrent = 0           # peak active slots (capacity proof)
+        # chunked prefill: active iff configured AND the backend supports
+        # it (an injected backend may not)
+        self._chunked = (ec.prefill_chunk_tokens is not None
+                         and getattr(self.backend, "chunking", False))
+        self._chunk_stalls = 0   # chunk or admission dispatches deferred by
+        #                          an exhausted per-iteration token budget
         # speculative decoding: active iff configured AND the backend
         # supports it (an injected backend may not)
         self._spec = (ec.spec_tokens
@@ -258,7 +255,8 @@ class LLMEngine:
         rids = np.zeros((n,), np.int32)
         steps = np.zeros((n,), np.int32)
         for i, r in enumerate(self.slots):
-            if r is None:
+            # empty and mid-chunk rows are ignored host-side: greedy
+            if r is None or r.state != RequestState.RUNNING:
                 continue
             lo = i * q
             temps[lo:lo + q] = self._req_temperature(r)
@@ -301,16 +299,26 @@ class LLMEngine:
 
     # -- one iteration -----------------------------------------------------
 
-    def _dispatch_admission(self, req: Request, slot: int):
+    def _dispatch_admission(self, req: Request, slot: int, budget=None):
+        """One admission dispatch for ``req`` into ``slot``. Monolithic
+        backends run the whole prefill; under chunked prefill only the
+        first chunk (within ``budget`` tokens) is dispatched and the
+        request stays in PREFILL until later iterations finish it.
+        Returns ``(tokens consumed, first token or None)``."""
         req.state = RequestState.PREFILL
         req.waiting_iters = 0
         if self.backend.vectorized:
             samp, any_sampling = self._admission_vectors(req)
         else:
             samp, any_sampling = None, False
+        if self._chunked:
+            self.backend.prefill_begin(req, slot)
+            self.slots[slot] = req
+            return self.backend.prefill_chunk(req, slot, budget, samp,
+                                              any_sampling)
         tok = self.backend.prefill(req, slot, samp, any_sampling)
         self.slots[slot] = req
-        return tok
+        return 0, tok
 
     def step(self) -> List[StepOutput]:
         """One engine iteration → every request's progress this step."""
@@ -318,13 +326,27 @@ class LLMEngine:
         return outputs
 
     def _step(self):
+        """One engine iteration: one decode (or verify) pass over the
+        running slots, up to ``admit_batch`` admission dispatches (plus at
+        most one forced admission), then a single device→host fetch of the
+        sampled tokens. Under chunked prefill the iteration is bounded: all
+        prefill work (chunk continuations first, then new admissions)
+        shares one ``prefill_chunk_tokens`` budget, so a long prompt no
+        longer stalls every running decode behind a monolithic prefill.
+        Requests finishing by length release their resources before this
+        iteration's admissions; stop/EOS finishes release on the fetch."""
         self.iterations += 1
         it_t0 = time.perf_counter()
         outputs: List[StepOutput] = []
+        # decode batches only RUNNING occupants; mid-chunk (PREFILL) slots
+        # hold blocks but no token yet — their prefill continues below
         active = [i for i, r in enumerate(self.slots)
                   if r is not None and r.state == RequestState.RUNNING]
+        chunking = [i for i, r in enumerate(self.slots)
+                    if r is not None and r.state == RequestState.PREFILL]
         at_dispatch = list(self.slots)  # snapshot: who owns each decode row
-        self.max_concurrent = max(self.max_concurrent, len(active))
+        self.max_concurrent = max(self.max_concurrent,
+                                  len(active) + len(chunking))
         # speculative path: drafts built host-side, and one verify pass
         # over [slots, k+1] positions replaces the decode pass
         spec_drafts = spec_mat = spans = None
@@ -344,8 +366,31 @@ class LLMEngine:
         elif active:
             dec_tok = self.backend.decode(active, self.slots, None, False)
 
+        # chunked prefill: in-flight admissions continue first (they hold
+        # their blocks already, and finishing one turns a dead slot into a
+        # decode row), in the scheduler's chunk order (qos: rt before be)
         admitted: List[tuple] = []      # (request, slot, first token)
         granted: List[Request] = []     # dispatched admissions (for credit)
+        granted_slots: set = set()
+        budget = self.ec.prefill_chunk_tokens if self._chunked else None
+        if chunking:
+            pairs = [(i, self.slots[i]) for i in chunking]
+            order_fn = getattr(self.scheduler, "chunk_order", None)
+            order = (order_fn(pairs) if order_fn is not None
+                     else [i for i, _ in pairs])
+            for i in order:
+                if budget is not None and budget < self.ec.block_len:
+                    self._chunk_stalls += 1
+                    break
+                r = self.slots[i]
+                samp, any_sampling = self._admission_vectors(r)
+                used, tok = self.backend.prefill_chunk(r, i, budget, samp,
+                                                       any_sampling)
+                if budget is not None:
+                    budget -= used
+                if tok is not None:
+                    admitted.append((r, i, tok))
+
         # length-determined finishes free their resources *now* so this
         # iteration's admissions can reuse them
         will_free = [i for i in active
@@ -357,10 +402,15 @@ class LLMEngine:
         free = [i for i, r in enumerate(self.slots) if r is None]
         avail = free + will_free
 
+        # an exhausted chunk budget blocks the queue head like a capacity
+        # block does
         limit = min(self.ec.admit_batch,
                     self.backend.max_admit or self.ec.admit_batch)
         for req in self.scheduler.admit_order(list(self.queue)):
             if not avail or len(granted) >= limit:
+                break
+            if budget is not None and budget < self.ec.block_len:
+                self._chunk_stalls += 1
                 break
             if not self.backend.can_admit(req):
                 break
@@ -369,25 +419,38 @@ class LLMEngine:
                 break
             avail.remove(slot)
             self.queue.remove(req)
-            tok = self._dispatch_admission(req, slot)
+            used, tok = self._dispatch_admission(req, slot, budget)
+            if budget is not None:
+                budget -= used
             granted.append(req)
-            admitted.append((req, slot, tok))
+            granted_slots.add(slot)
+            if tok is not None:
+                admitted.append((req, slot, tok))
 
         # forced admission (bounded-priority / QoS rt guarantee): a free
-        # slot first, then preempt victims — never a slot that is finishing
-        # or was admitted this iteration — until the request fits
+        # slot first — chunked, with a fresh one-chunk allowance (the
+        # latency bound outranks the shared budget) — then preempt victims,
+        # never a slot that is finishing or was admitted this iteration,
+        # until the request fits
+        forced_budget = (self.ec.prefill_chunk_tokens if self._chunked
+                         else None)
         forced = self.scheduler.forced_request(list(self.queue), granted)
         if forced is not None and self.backend.can_admit(forced):
             slot = self._choose_slot(forced, avail)
             if slot is not None:
                 avail.remove(slot)
                 self.queue.remove(forced)
-                tok = self._dispatch_admission(forced, slot)
+                used, tok = self._dispatch_admission(forced, slot,
+                                                     forced_budget)
                 granted.append(forced)
-                admitted.append((forced, slot, tok))
+                granted_slots.add(slot)
+                if tok is not None:
+                    admitted.append((forced, slot, tok))
                 forced = None
         if forced is not None:
-            taken = {s for _, s, _ in admitted}
+            # nor a slot whose final chunk just completed (its first token
+            # is in flight)
+            taken = granted_slots | {s for _, s, _ in admitted}
             running = [(i, r) for i, r in enumerate(self.slots)
                        if r is not None and i not in pre_released
                        and i not in taken]
@@ -409,9 +472,12 @@ class LLMEngine:
                     if self.backend.can_admit(forced):
                         self.queue.remove(forced)
                         slot = evict[0]
-                        tok = self._dispatch_admission(forced, slot)
+                        used, tok = self._dispatch_admission(forced, slot,
+                                                             forced_budget)
                         granted.append(forced)
-                        admitted.append((forced, slot, tok))
+                        granted_slots.add(slot)
+                        if tok is not None:
+                            admitted.append((forced, slot, tok))
 
         finished = self._fetch_and_finish(dec_tok, active, at_dispatch,
                                           admitted, pre_released, outputs,
@@ -567,6 +633,12 @@ class LLMEngine:
             "spec_accepted": float(self.spec_accepted),
             "spec_accept_rate": (self.spec_accepted / drafted
                                  if drafted else 0.0),
+            "prefill_chunks_in_flight": float(sum(
+                1 for r in self.slots
+                if r is not None and r.state == RequestState.PREFILL)),
+            "prefill_chunks_dispatched": float(
+                getattr(b, "prefill_chunk_dispatches", 0)),
+            "prefill_chunk_stalls": float(self._chunk_stalls),
         }
         alloc = getattr(b, "alloc", None)
         if alloc is None or not getattr(b, "prefix_caching", False):

@@ -16,14 +16,15 @@ selected by ``EngineConfig.backend``:
     pool of fixed-size KV blocks (``models.cache.PagedLayout``) with
     host-owned block tables, paged prefill straight into pool blocks, int8
     block storage for quantized archs, prefix caching (content-addressed
-    block sharing with copy-on-write and suffix-resume prefill) and
-    speculative decoding (small-q verify, commit and block rollback).
+    block sharing with copy-on-write and suffix-resume prefill),
+    speculative decoding (small-q verify, commit and block rollback) and
+    chunked prefill (block-aligned chunks under a token budget).
 
 Which families serve on which backend is ``registry.Arch.serve_backends``:
 in the port the ``ssm`` and ``hybrid`` families serve on ``slot``/``arena``
 and the dense family on ``paged``. Not ported yet (refused with
 ``NotImplementedError``): the dense family on ``slot``/``arena``, ring
-blocks for sliding-window layers, chunked prefill and mesh sharding.
+blocks for sliding-window layers and mesh sharding.
 """
 
 from __future__ import annotations
@@ -105,6 +106,7 @@ class _BackendBase:
 
     vectorized = True                 # False: decode/prefill return host ints
     max_admit: Optional[int] = None   # None → EngineConfig.admit_batch
+    chunking = False                  # chunked-prefill admission path
 
     def __init__(self, arch: registry.Arch, params, ec: EngineConfig,
                  device: torch.device):
@@ -171,6 +173,8 @@ def validate_paged_config(arch: registry.Arch, ec: EngineConfig) -> None:
             f"paged serving: arch {cfg.name!r} is quantized (serve_quant) "
             f"but the family does not support int8 block pools")
     if "L" in cfg.pattern and cfg.local_window < ec.max_len:
+        # with the ring blocks comes the reference's automatic opt-out of
+        # ring layouts from chunked prefill, prefix caching and spec
         raise NotImplementedError(
             f"ring layout: arch {cfg.name!r} has sliding-window layers "
             f"(local_window={cfg.local_window} < max_len={ec.max_len}), "
@@ -305,6 +309,11 @@ class PagedBackend(_BackendBase):
     decode pass with ``verify`` — one small-q pass over each slot's last
     committed token plus its drafts — and ``commit``s the accepted count
     per slot, rolling rejected blocks back to the allocator.
+
+    **Chunked prefill** (``prefill_chunk_tokens``): an admission's prefill
+    runs as block-aligned chunks, each within the engine's per-iteration
+    token budget; every chunk resumes after the blocks already written,
+    the same suffix-resume path a prefix-cache hit takes.
     """
 
     name = "paged"
@@ -333,9 +342,13 @@ class PagedBackend(_BackendBase):
             OrderedDict()
         self.prefill_tokens_skipped = 0
         self.prefill_tokens_total = 0
+        # chunked prefill: admissions split into block-aligned chunks
+        # co-scheduled with decode
+        self.chunking = ec.prefill_chunk_tokens is not None
         # per-slot admission state between prefill_begin and the final
         # prefill_chunk
         self._chunk: Dict[int, dict] = {}
+        self.prefill_chunk_dispatches = 0
         self.spec_supported = arch.supports_spec_decode
         self.quantized = bool(arch.cfg.serve_quant)
         self.cache = arch.init_paged_cache(ec.slots, self.layout,
@@ -610,31 +623,52 @@ class PagedBackend(_BackendBase):
 
     def prefill_chunk(self, req: Request, slot: int, budget, samp,
                       any_sampling):
-        """The prefill dispatch for the admission started by
-        ``prefill_begin``: the whole uncached suffix, resumed after the
-        cached prefix (``start`` = the cursor; the prefix blocks are
-        gathered and attended). Returns ``(tokens_consumed, first token)``.
-        A token ``budget`` (chunked prefill) is not ported yet."""
-        if budget is not None:
-            raise NotImplementedError(
-                "prefill_chunk_tokens (chunked prefill) is not ported yet")
+        """One prefill-chunk dispatch for the admission started by
+        ``prefill_begin``. ``budget`` bounds the chunk's token count
+        (``None``: the whole remaining suffix, the monolithic path).
+        Returns ``(tokens_consumed, first token)``; the token is ``None``
+        mid-prefill (the prompt itself is the next input), and
+        ``(0, None)`` comes back without a dispatch when the budget is
+        under one block (the engine counts a stall).
+
+        Mid-chunks are whole blocks of exact tokens, so every chunk writes
+        whole pool blocks with ``start`` at the cursor and attends the
+        blocks already written as its prefix — the suffix-resume path a
+        prefix-cache hit takes, token-identical to the monolithic pass on
+        float pools. The table row is filled on the final chunk only: a
+        mid-chunk slot's (ignored) decode row writes into the trash block
+        through its zeroed row."""
         st = self._chunk[slot]
         blk = self.ec.block_len
         c = req.prefill_pos
         n = st["n"]
-        length = n - c
+        rem = n - c
+        final = budget is None or budget >= rem
+        if final:
+            length = rem
+        else:
+            length = (budget // blk) * blk
+            if length <= 0:
+                return 0, None
         toks = st["toks"]
         block_ids = st["block_ids"]
         pb = c // blk                      # resume depth in blocks
-        if self._bucketing:
-            # the full admission bucket, padded
-            width = st["pre_len"] - c
+        if final and self._bucketing:
+            if budget is None:
+                # the full admission bucket, padded
+                width = st["pre_len"] - c
+            else:
+                # a budgeted final chunk pads to its own bucket only,
+                # never past the reservation
+                bucket = bucket_for(length, max(self.ec.min_bucket, blk),
+                                    max(budget, blk))
+                width = min(blocks_for(bucket, blk) * blk, st["pre_len"] - c)
             tokens = np.zeros((1, width), np.int32)
             tokens[0, :length] = toks[c:]
             true_len = n
         else:
             width = length
-            tokens = toks[None, c:]
+            tokens = toks[None, c:c + length]
             true_len = None
         suffix_ids = block_ids[pb:blocks_for(c + width, blk)]
         prefix_ids = (torch.from_numpy(block_ids[:pb]).to(self.device)
@@ -643,16 +677,25 @@ class PagedBackend(_BackendBase):
             self.params, torch.from_numpy(tokens).to(self.device), self.cache,
             slot, torch.from_numpy(suffix_ids).to(self.device),
             true_len=true_len, prefix_ids=prefix_ids, start=c)
+        # only budgeted (chunking) dispatches count: 0 on monolithic engines
+        if self.chunking:
+            self.prefill_chunk_dispatches += 1
+        self.prefill_tokens_total += length
+        end = c + length
+        req.prefill_pos = end
+        if self.prefix_caching:
+            # publish every freshly written full block as its chunk
+            # completes (first-wins on a key collision: the duplicate stays
+            # private), so a concurrent admission can hit a request that is
+            # still mid-flight
+            for idx in range(pb, end // blk):
+                self.alloc.register(req.rid, idx, st["keys"][idx])
+        if not final:
+            return length, None
         tok = sample_tokens_per_slot(logits, *samp, self.ec.seed,
                                      any_sampling=any_sampling)  # [1]
         self.last_tok[slot] = tok[0]
-        self.prefill_tokens_total += length
-        req.prefill_pos = n
         if self.prefix_caching:
-            # publish every freshly written full block (first-wins on a
-            # key collision: the duplicate stays private)
-            for idx in range(pb, n // blk):
-                self.alloc.register(req.rid, idx, st["keys"][idx])
             self._slot_keys[slot] = list(st["keys"][:n // blk])
         # the slot becomes a decode row: fill its table
         self.table[slot, :block_ids.size] = block_ids

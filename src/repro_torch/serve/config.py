@@ -12,9 +12,10 @@ and validation, with two differences:
 * there is no ``attn_backend`` — the port has no per-op backend ladder, the
   device decides which version of a kernel runs.
 
-Settings the port does not implement yet (``prefill_chunk_tokens``, a
-family on a backend whose entry points are not ported) are accepted here
-and refused by ``LLMEngine`` at construction with ``NotImplementedError``.
+Settings the port does not implement yet (a family on a backend whose
+entry points are not ported, ring layouts on the paged backend) are
+accepted here and refused at engine construction with
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -71,7 +72,10 @@ class EngineConfig:
     spec_tokens: int = 0
     # draft method: "ngram" — prompt lookup over the request's own tokens
     spec_method: str = "ngram"
-    # not ported yet (refused by LLMEngine when set)
+    # paged backend: chunked prefill co-scheduled with decode. An
+    # admission's prefill runs as block-aligned chunks of at most this many
+    # tokens an iteration (one budget shared by every in-flight prefill).
+    # A multiple of block_len, >= it; None keeps monolithic prefills.
     prefill_chunk_tokens: Optional[int] = None
     # execution backend: "slot" (sequential per-slot reference), "arena"
     # (batched dense arena), "paged" (shared block pool; the port's default)
@@ -111,7 +115,10 @@ class EngineConfig:
             if c < self.block_len or c % self.block_len:
                 raise ValueError(
                     f"prefill_chunk_tokens must be a multiple of block_len "
-                    f"({self.block_len}) and >= it, got {c}")
+                    f"({self.block_len}) and >= it, got {c} — chunk "
+                    f"boundaries must land on block boundaries so each "
+                    f"chunk writes whole pool blocks and the suffix-resume "
+                    f"reduction order is unchanged")
         if self.spec_tokens < 0:
             raise ValueError(
                 f"spec_tokens must be >= 0, got {self.spec_tokens}")

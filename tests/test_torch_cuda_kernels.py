@@ -448,6 +448,50 @@ def test_spec_serving_on_card_agrees_with_cpu_and_spec_off(cuda_device):
             assert same >= 0.9 * 72, (quant_on, other, outs)
 
 
+@pytest.mark.parametrize("prefix", [False, True], ids=["cache-off",
+                                                      "cache-on"])
+@pytest.mark.parametrize("chunk", [8, 16])
+def test_chunked_serving_on_card_agrees_with_monolithic_and_cpu(
+        cuda_device, chunk, prefix):
+    """Smoke-size glm4-9b (float32) with chunked prefill of one or two
+    blocks: on the card, float pools give the monolithic run's greedy tokens
+    up to near-ties, and both pool types agree with the CPU's chunked run.
+    (On int8 pools a chunk boundary resumes over dequantized int8 K/V, a
+    different function from the monolithic prefill in both packages.)"""
+    import dataclasses
+
+    from repro_torch import bridge, configs
+    from repro_torch.models import registry
+    from repro_torch.serve import EngineConfig, LLMEngine
+
+    for quant_on in (False, True):
+        cfg = dataclasses.replace(configs.smoke_config("glm4-9b"),
+                                  dtype="float32", serve_quant=quant_on)
+        arch = registry.build(cfg)
+        npp = bridge.numpy_params(arch.schema(), seed=0)
+        rng = np.random.default_rng(1)
+        shared = rng.integers(0, cfg.vocab, 16)
+        prompts = [np.concatenate([shared, rng.integers(
+            0, cfg.vocab, int(rng.integers(1, 30)))]) for _ in range(6)]
+        outs = {}
+        for device, c in (("cuda", chunk), ("cuda", None), ("cpu", chunk)):
+            eng = LLMEngine(arch, bridge.params_from_numpy(npp, device),
+                            EngineConfig(slots=4, max_len=64, admit_window=2,
+                                         block_len=8, prefill_chunk_tokens=c,
+                                         prefix_cache=prefix), device=device)
+            hs = [eng.add_request(p, max_new_tokens=12) for p in prompts]
+            eng.run_until_drained()
+            outs[device, c] = [eng.request(h).output for h in hs]
+            if c is not None:
+                assert eng.backend.prefill_chunk_dispatches > len(prompts)
+        others = [("cpu", chunk)] + ([] if quant_on else [("cuda", None)])
+        for other in others:
+            same = sum(a == b for x, y in zip(outs["cuda", chunk],
+                                              outs[other])
+                       for a, b in zip(x, y))
+            assert same >= 0.9 * 72, (quant_on, other, outs)
+
+
 def _ssd_case(dev, s, *, h=80, g=1, p=64, n=128, decay=2.0, seed=0):
     """mamba2-2.7b's widths by default (80 heads × P 64, N 128, one group);
     Δ·A drawn in (-decay, 0]."""

@@ -233,10 +233,6 @@ def test_sampling_is_a_function_of_seed_rid_and_index():
 
 @pytest.mark.parametrize("setting,kw", [
     ("backend", dict(backend="slot")),
-    ("prefill_chunk_tokens", dict(prefill_chunk_tokens=16)),
-    # the ported features do not mask the refusal of an unported one
-    ("prefill_chunk_tokens", dict(prefill_chunk_tokens=32, spec_tokens=2,
-                                  prefix_cache=True)),
     ("backend", dict(backend="arena")),
 ])
 def test_unported_settings_raise_by_name(setting, kw):
@@ -247,13 +243,19 @@ def test_unported_settings_raise_by_name(setting, kw):
 
 def test_mesh_and_ring_layouts_raise_by_name():
     _, _, tarch, tparams = setup_pair("glm4-9b", False)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        LLMEngine(tarch, tparams, EngineConfig(), mesh=object(), device="cpu")
+    # the ported features do not mask the refusal of an unported one
+    for kw in (dict(), dict(prefill_chunk_tokens=32, spec_tokens=2,
+                            prefix_cache=True)):
+        with pytest.raises(NotImplementedError, match="mesh"):
+            LLMEngine(tarch, tparams, EngineConfig(**kw), mesh=object(),
+                      device="cpu")
     # gemma3's sliding-window layers need ring-block pools
     cfg = dataclasses.replace(tconfigs.smoke_config("gemma3-4b"),
                               dtype="float32")
     arch = tregistry.build(cfg)
     params = bridge.params_from_numpy(bridge.numpy_params(arch.schema(), 0),
                                       "cpu")
-    with pytest.raises(NotImplementedError, match="ring"):
-        LLMEngine(arch, params, EngineConfig(max_len=64), device="cpu")
+    for kw in (dict(), dict(prefill_chunk_tokens=16)):
+        with pytest.raises(NotImplementedError, match="ring"):
+            LLMEngine(arch, params, EngineConfig(max_len=64, **kw),
+                      device="cpu")
