@@ -13,15 +13,22 @@ non-zero on failure; none is caught):
    finishes while phases 2-5 run, and its kernel is checked at the start
    of phase 6);
 2. hold each kernel against its plain PyTorch version on the card at the
-   shapes glm4-9b's serving path gives it — the int8 GEMM bit-exact on
-   K-major weights (every projection at M = 1, decode's 8, verify's 40,
-   and the 64-row tile edge 64 and 65; ragged shapes and int32-range
-   biases), with its per-projection times, grids and device time a layer
+   shapes glm4-9b's serving path gives it (and gemma3-4b's, below) — the
+   int8 GEMM bit-exact on K-major weights (every projection at M = 1,
+   decode's 8, verify's 40, and the 64-row tile edge 64 and 65; ragged
+   shapes and int32-range biases), with its per-projection times, grids and device time a layer
    and ``torch._int_mm`` alone as a second yardstick, paged decode and
    verify attention
    allclose (also with lens on and beside their split boundaries, a window
    starting inside a split and a 4096-key row), verify at Q = 1 and in
-   row 0 bit-equal to decode — and the SSD chunked scan
+   row 0 bit-equal to decode; paged decode attention at gemma3-4b's
+   geometry (8 query and 4 kv heads of 256, block_len 16, window 1024) on
+   f32, bf16 and int8 pools, over ring tables 65 entries wide with
+   ``start`` = first·16 for first in {0, 1, 62, 185} and lens − start from
+   1 to 1040, and over a G layer's full-history table with rows up to 4096
+   keys (whole splits below the window), each allclose and then timed, and
+   the int8 GEMM bit-exact on gemma3-4b's seven projections at M = 1 and 8
+   — and the SSD chunked scan
    at mamba2-2.7b's widths (S = 1, 5, 129, 512, 2048, and a G = 2 case of
    40 heads a group) allclose, y bit-equal with and without the state, with
    its device time, CUDA launches and grids a call, and the RG-LRU scan at
@@ -84,13 +91,34 @@ non-zero on failure; none is caught):
    every output finite, and on a small input the card's ``int8_attention``
    and ``int_softmax`` equal the CPU's plain path bit for bit; then each
    network's attention pass again under ``torch.profiler``: its device
-   time and B6's share, its outputs bit-equal to the first pass's.
+   time and B6's share, its outputs bit-equal to the first pass's;
+7. serve full-width gemma3-4b (random bf16 weights, 34 layers: 29
+   sliding-window layers on ring pools of 65 blocks a slot, 5 global ones
+   on the full-history pool; ``max_len`` 4128) through
+   ``LLMEngine(backend="paged")``: 16 requests × 32 tokens (12 prompts of
+   64–512 tokens, 2 of 1000–1020 whose decodes cross the window and the
+   first ring rotation, 2 of 3000–4000 whose rings wrap inside the
+   prefill) on int8 and bf16 pools, and on int8 pools again with
+   ``prefix_cache``, ``prefill_chunk_tokens`` and ``spec_tokens`` set,
+   which a ring layout turns off; check every request finishes with its
+   token count and finite logits, each decode step launches the attention
+   kernel once a layer and (int8) the GEMM seven times a layer, the
+   opt-out run launches no verify kernel, dispatches no chunk, hits no
+   prefix and gives the plain int8 run's tokens, ``pool_bytes`` is the
+   ring layout's (printed beside the full-history layout's), and on a
+   small input (gemma3-4b-smoke, window 16) the card agrees with the CPU;
+   print each run's iteration walls and time to first token, and one
+   steady-state int8 decode step's device time with the GEMM's and the
+   attention kernel's shares.
 
 Every ``torch.profiler`` session keeps host-idle margins inside both ends
 (``profiled``): in a few sessions in a hundred the profiler places the
 device records milliseconds early on the host clock, and without the
 margin the first kernels' records fall outside the session and are lost
-(``profiler_loss.py`` counts it).
+(``profiler_loss.py`` counts it). Once the process has served a model, the
+profiler also drops the records of each session's first 9 to 16 launches,
+so every session opens with a prologue of empty spin kernels that takes
+that loss and is left out of every reading.
 
 The last lines of stdout are a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -175,19 +203,46 @@ def timed(torch, fn, reps: int, flush=None) -> float:
 # the launch counters are right), but the profiler does not list them.
 # Host-idle time inside both ends of the session keeps every record in it.
 PROFILE_MARGIN_S = 0.05
+# Besides, once a process has served a model, every session loses the device
+# records of its first launches (9 to 16 of them, more as the process goes
+# on; their host-side launch records are all there). A prologue of empty
+# spin kernels opens each session and takes that loss; its records are left
+# out of what the session lists.
+PROLOGUE_LAUNCHES = 256
+PROLOGUE_KERNEL = "spin_kernel"
+
+
+class Profile:
+    """A finished ``torch.profiler`` session without its prologue."""
+
+    def __init__(self, prof):
+        self.prof = prof
+
+    def key_averages(self):
+        return [e for e in self.prof.key_averages()
+                if PROLOGUE_KERNEL not in e.key]
+
+    def events(self):
+        return [e for e in self.prof.events()
+                if PROLOGUE_KERNEL not in e.name]
 
 
 @contextlib.contextmanager
 def profiled(torch):
-    """A ``torch.profiler`` session over CPU and CUDA activity with
-    ``PROFILE_MARGIN_S`` of host-idle time inside each end; the body's work
-    is synchronised before the closing margin."""
+    """A ``torch.profiler`` session over CPU and CUDA activity that opens
+    with ``PROLOGUE_LAUNCHES`` empty spin kernels (``torch.cuda._sleep``)
+    and keeps ``PROFILE_MARGIN_S`` of host-idle time inside each end; the
+    body's work is synchronised before the closing margin. Yields a
+    ``Profile``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROLOGUE_LAUNCHES):
+            torch.cuda._sleep(0)
+        torch.cuda.synchronize()
         time.sleep(PROFILE_MARGIN_S)
-        yield prof
+        yield Profile(prof)
         torch.cuda.synchronize()
         time.sleep(PROFILE_MARGIN_S)
 
@@ -386,11 +441,16 @@ def check_int8_gemm(torch, cfg, slots, verify_rows, flush):
 
 
 def attention_case(torch, cfg, slots, lens, *, pool_dtype, int8, blk,
-                   window=None, start=False, seed=1, qlen=1):
+                   window=None, start=False, seed=1, qlen=1, width=None,
+                   firsts=None):
+    """Paged-attention inputs at ``cfg``'s head geometry: a table sized for
+    the longest row plus two blocks (or ``width`` entries); ``start`` puts
+    row i's entry 0 at (i % 3)·blk, ``firsts`` (cycled over the rows) at
+    first·blk, with lens measured from there."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    m = max(-(-(max(lens) + 2 * blk) // blk), 1)
+    m = width or max(-(-(max(lens) + 2 * blk) // blk), 1)
     n = slots * m + 1
     q = torch.randn((slots, hq, qlen, d), generator=g, device=dev) * 2.0
     if int8:
@@ -410,6 +470,11 @@ def attention_case(torch, cfg, slots, lens, *, pool_dtype, int8, blk,
     if start:
         st = (torch.arange(slots, device=dev, dtype=torch.int32) % 3) * blk
         lens_t = torch.where(lens_t > 0, lens_t + st, 0).to(torch.int32)
+    if firsts is not None:
+        st = torch.tensor([firsts[i % len(firsts)] * blk
+                           for i in range(slots)], dtype=torch.int32,
+                          device=dev)
+        lens_t = lens_t + st
     kw = dict(window=window, start=st)
     if int8:
         kw["k_scale"] = torch.rand(n, generator=g, device=dev) * 0.04 + 0.01
@@ -615,6 +680,171 @@ def check_verify(torch, cfg, slots, blk, lens, qlen, flush, *, int8):
         grid=ops.launch_grid(q, kp, table), cases_checked=len(cases),
         shape=f"B={slots} Hq={cfg.n_heads} Hkv={cfg.n_kv_heads} D={cfg.hd} "
               f"Q={qlen} blk={blk} lens={lens}")
+
+
+# gemma3-4b's decode rows for B1/B2: a ring table 65 entries wide (a window
+# of 1024 at block_len 16, plus one write-ahead block), entry 0 at absolute
+# position start = first·16, lens − start from 1 to 1040; and a G layer's
+# full-history table at max_len 4128 (258 entries) with rows up to 4096 keys
+RING_FIRSTS = (0, 1, 62, 185)
+RING_RELS = (1, 15, 16, 17, 500, 1008, 1023, 1024, 1025, 1039, 1040)
+FULL_LENS = (1, 1000, 1024, 1025, 2047, 3000, 4095, 4096)
+
+
+def check_ring_attention(torch, cfg, blk, max_len, flush, *, int8):
+    """B1 (``int8`` False: f32 and bf16 pools) or B2 (int8 pools) at
+    gemma3-4b's geometry on the ring rows and the full-history rows above,
+    allclose with the plain version at the tolerances of
+    ``check_attention``; then both row sets timed at 8 serving rows (the
+    ring's steady state, every row's window full; a G layer's rows),
+    beside the plain version, SDPA over the gathered keys and the bound of
+    the keys the window admits."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.paged_attention.ref import (
+        gather_kv, paged_attention_int8_dequant_ref, paged_attention_ref,
+    )
+
+    window = cfg.local_window
+    full_w = -(-max_len // blk)
+    ring_w = -(-window // blk) + 1
+    op = ops.paged_attention_int8 if int8 else ops.paged_attention
+    ref = paged_attention_int8_dequant_ref if int8 else paged_attention_ref
+    pools = [torch.int8] if int8 else [torch.float32, torch.bfloat16]
+    errs, n_checked = {}, 0
+    for pool in pools:
+        for label, rels, kw_case in (
+                ("ring", RING_RELS, dict(width=ring_w, firsts=RING_FIRSTS)),
+                ("full", FULL_LENS, dict(width=full_w))):
+            args, kw = attention_case(torch, cfg, len(rels), rels,
+                                      pool_dtype=pool, int8=int8, blk=blk,
+                                      window=window, seed=7, **kw_case)
+            if int8:   # the serving path's bf16 queries
+                args = (args[0].bfloat16(),) + args[1:]
+            out = op(*args, **kw)
+            want = ref(*args, **kw)
+            torch.cuda.synchronize()
+            tol = 1.6e-2 if out.dtype == torch.bfloat16 else 1e-4
+            torch.testing.assert_close(out.float(), want.float(), atol=tol,
+                                       rtol=tol)
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{op.__name__} {label}: not finite")
+            errs[f"{label} {str(pool).split('.')[-1]}"] = (
+                out.float() - want.float()).abs().max().item()
+            n_checked += 1
+    timing = {}
+    pool = torch.int8 if int8 else torch.bfloat16
+    for label, rels, kw_case in (
+            ("ring", tuple(range(1033, 1041)),
+             dict(width=ring_w, firsts=RING_FIRSTS)),
+            ("full", (100, 300, 544, 1000, 1020, 2000, 3000, 4096),
+             dict(width=full_w))):
+        args, kw = attention_case(torch, cfg, len(rels), rels,
+                                  pool_dtype=pool, int8=int8, blk=blk,
+                                  window=window, seed=11, **kw_case)
+        if int8:
+            args = (args[0].bfloat16(),) + args[1:]
+        q, kp, vp, table, lens = args
+        k, v = gather_kv(kp, table), gather_kv(vp, table)
+        if int8:  # the yardstick attends the dequantized K/V in bf16
+            es = lambda s: s[table.long()].repeat_interleave(blk, 1)[:, None, :, None]  # noqa: E731
+            k = (k.float() * es(kw["k_scale"])).bfloat16()
+            v = (v.float() * es(kw["v_scale"])).bfloat16()
+        pos = torch.arange(k.shape[2], device=q.device)[None, :]
+        if kw["start"] is not None:
+            pos = pos + kw["start"][:, None]
+        mask = ((pos < lens[:, None]) & (pos >= lens[:, None] - window)
+                )[:, None, None, :]
+        sdpa = dict(attn_mask=mask, enable_gqa=True)
+        try:
+            F.scaled_dot_product_attention(q, k, v, **sdpa)
+        except TypeError:  # a PyTorch without enable_gqa
+            group = cfg.n_heads // cfg.n_kv_heads
+            k, v = k.repeat_interleave(group, 1), v.repeat_interleave(group, 1)
+            sdpa = dict(attn_mask=mask)
+        keys = sum(min(r, window) for r in rels)     # what the window admits
+        esz = 1 if int8 else 2
+        nblocks = sum(-(-min(r, window) // blk) for r in rels)
+        nbytes = (2 * q.numel() * q.element_size()
+                  + 2 * keys * cfg.n_kv_heads * cfg.hd * esz
+                  + 4 * (nblocks + 2 * len(rels))
+                  + (8 * nblocks if int8 else 0))
+        b_ms, b_by = bound(nbytes, 4 * keys * cfg.n_heads * cfg.hd,
+                           "int8" if int8 else "bf16")
+        dev_ms, _ = device_ms(torch, lambda: op(*args, **kw), flush)
+        timing[label] = dict(
+            ms=timed(torch, lambda: op(*args, **kw), 50, flush),
+            device_ms=dev_ms,
+            plain_ms=timed(torch, lambda: ref(*args, **kw), 10, flush),
+            library_ms=timed(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, **sdpa), 50, flush),
+            bound_ms=b_ms, bound_by=b_by,
+            grid=list(ops.launch_grid(q, kp, table)),
+            rows=f"{len(rels)} rows, lens-start {rels[0]}..{rels[-1]}, "
+                 f"{table.shape[1]} entries")
+    return dict(name="paged_attention_int8" if int8 else "paged_attention",
+                errs=errs, cases_checked=n_checked, timing=timing)
+
+
+def check_int8_gemm_shapes(torch, cfg, ms, flush):
+    """B3 bit-exact on ``cfg``'s seven projections (K-major weights) at
+    each M of ``ms``, all three activations; one layer's seven projections
+    at the largest M timed (event ms, L2 flushed by a read before each
+    layer) beside its bound."""
+    from repro_torch.core import quant
+    from repro_torch.kernels.int8_gemm import ops
+    from repro_torch.kernels.int8_gemm.ref import int8_gemm_ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.hd
+    shapes = {"wq": (d, cfg.n_heads * hd), "wk": (d, cfg.n_kv_heads * hd),
+              "wv": (d, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, d),
+              "wg": (d, f), "wu": (d, f), "wd": (f, d)}
+    layer = {}
+    for name, (k, n) in shapes.items():
+        w = torch.randint(-127, 128, (n, k), generator=g, device=dev,
+                          dtype=torch.int8).mT
+        scale = torch.exp2(-8 - 6 * torch.rand(n, generator=g, device=dev))
+        mult, shift = quant.quantize_to_fixed_point(scale)
+        bias = torch.randint(-20000, 20000, (n,), generator=g, device=dev,
+                             dtype=torch.int32)
+        layer[name] = (w, bias, mult.to(torch.int32), shift.to(torch.int32))
+    n_checked = 0
+    for m in ms:
+        for name, (w, bias, mult, shift) in layer.items():
+            x = torch.randint(-127, 128, (m, w.shape[0]), generator=g,
+                              device=dev, dtype=torch.int8)
+            for act in ("none", "relu", "gelu"):
+                scales = (4.0 / 127, 4.0 / 127) if act == "gelu" else None
+                y = ops.int8_gemm_cuda(x, w, bias, mult, shift,
+                                       activation=act, act_scales=scales)
+                want = int8_gemm_ref(x, w, bias, mult, shift,
+                                     activation=act, act_scales=scales)
+                torch.cuda.synchronize()
+                if not torch.equal(y, want):
+                    raise AssertionError(
+                        f"int8_gemm {cfg.name} {name} M={m} {act}: "
+                        f"{(y != want).sum().item()} outputs differ")
+                n_checked += 1
+    m = max(ms)
+    args = [(torch.randint(-127, 128, (m, w.shape[0]), generator=g,
+                           device=dev, dtype=torch.int8), w, b, mu, sh)
+            for w, b, mu, sh in layer.values()]
+    nbytes = sum(m * w.shape[0] + w.numel() + 12 * w.shape[1]
+                 + m * w.shape[1] for w, *_ in layer.values())
+    ops_n = sum(2 * m * w.shape[0] * w.shape[1] for w, *_ in layer.values())
+    b_ms, b_by = bound(nbytes, ops_n, "int8")
+
+    def kernel():
+        for a in args:
+            ops.int8_gemm_cuda(*a)
+
+    return dict(cases_checked=n_checked, m=m,
+                ms=timed(torch, kernel, 20, flush), bound_ms=b_ms,
+                bound_by=b_by, device_ms=device_ms(torch, kernel, flush)[0],
+                shapes={k: list(v) for k, v in shapes.items()})
 
 
 def check_ssd_scan(torch, cfg, lengths, main_len):
@@ -1114,7 +1344,7 @@ def serve(torch, arch, params, prompts, slots, max_new, max_len=None,
                 f"request {r.rid}: {len(r.output)} tokens, {r.finish_reason}")
     # the logits of one more decode (or verify) step over the engine's
     # pools are finite
-    k = engine_kw.get("spec_tokens", 0)
+    k = eng._spec                 # 0 where the backend opts out of spec
     if k:
         logits, _ = arch.paged_verify_step(
             params, eng.cache, torch.zeros((slots, k + 1), dtype=torch.int32,
@@ -1130,6 +1360,10 @@ def serve(torch, arch, params, prompts, slots, max_new, max_len=None,
         raise AssertionError(f"logits {tuple(logits.shape)} not finite")
     m = eng.metrics()
     return dict(
+        outputs=[list(r.output) for r in reqs],
+        decode_dispatches=m["decode_dispatches"],
+        pool_bytes=eng.backend.pool_bytes,
+        prefix_hit_blocks=eng.backend.alloc.hit_blocks,
         tokens_per_s=sum(len(r.output) for r in reqs) / wall,
         decode_ms_per_iter_p50=m["iter_wall_p50_ms"],
         iter_ms_p99=m["iter_wall_p99_ms"],
@@ -1148,21 +1382,23 @@ def serve(torch, arch, params, prompts, slots, max_new, max_len=None,
         launches=counts)
 
 
-def decode_steps(torch, arch, params, slots, reps=25):
+def decode_steps(torch, arch, params, slots, reps=25, prompt_len=200,
+                 max_len=512):
     """Steady-state decode iterations of ``LLMEngine`` (every slot running
-    a 200-token prompt): the host-clock p50 of one step, and a step's device
-    time from ``torch.profiler`` — all kernels, the int8 GEMM's share, and
-    the number of kernels."""
+    a ``prompt_len``-token prompt): the host-clock p50 of one step, and a
+    step's device time from ``torch.profiler`` — all kernels, the int8
+    GEMM's and the paged-attention kernels' shares, and the number of
+    kernels."""
     import numpy as np
 
     from repro_torch.serve import EngineConfig, LLMEngine
 
     rng = np.random.default_rng(5)
-    eng = LLMEngine(arch, params, EngineConfig(slots=slots, max_len=512,
+    eng = LLMEngine(arch, params, EngineConfig(slots=slots, max_len=max_len,
                                                block_len=16))
     for _ in range(slots):
-        eng.add_request(rng.integers(0, arch.cfg.vocab, 200).astype(np.int32),
-                        max_new_tokens=200)
+        eng.add_request(rng.integers(0, arch.cfg.vocab, prompt_len
+                                     ).astype(np.int32), max_new_tokens=200)
     for _ in range(12):           # the admissions and the first decodes
         eng.step()
     walls = []
@@ -1182,6 +1418,8 @@ def decode_steps(torch, arch, params, slots, reps=25):
                 device_ms=sum(dev_us(e) for e in kernels) / n / 1e3,
                 gemm_device_ms=sum(dev_us(e) for e in kernels
                                    if "int8_gemm" in e.key) / n / 1e3,
+                attn_device_ms=sum(dev_us(e) for e in kernels
+                                   if "paged_attention" in e.key) / n / 1e3,
                 kernels=sum(e.count for e in kernels) / n)
 
 
@@ -1578,6 +1816,142 @@ def ita_path(torch, cfg):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: gemma3-4b on the paged ring pools
+# ---------------------------------------------------------------------------
+
+
+def ring_prompts(vocab, seed):
+    """12 prompts of 64–512 random tokens, 2 of 1000–1020 (their decodes
+    cross the 1024-token window and the first ring rotation at position
+    1040) and 2 of 3000–4000 (their rings wrap inside the prefill)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = [int(rng.integers(64, 513)) for _ in range(12)]
+    lens[2:2] = [int(rng.integers(1000, 1021))]
+    lens[6:6] = [int(rng.integers(3000, 4001))]
+    lens[9:9] = [int(rng.integers(1000, 1021))]
+    lens[13:13] = [int(rng.integers(3000, 4001))]
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
+
+
+def small_input_ring_agreement(torch, quant):
+    """Smoke-size gemma3-4b (window 16, float32) on ring pools (block_len
+    4, max_len 64, prompts of 17–40 tokens: longer than the window)
+    through the kernels on the card and the plain versions on the CPU:
+    ≥ 90 % equal greedy tokens."""
+    from repro_torch import bridge, configs
+    from repro_torch.models import registry
+    from repro_torch.serve import EngineConfig, LLMEngine
+
+    import numpy as np
+
+    cfg = dataclasses.replace(configs.smoke_config("gemma3-4b"),
+                              dtype="float32", serve_quant=quant)
+    arch = registry.build(cfg)
+    npp = bridge.numpy_params(arch.schema(), seed=SEED)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(17, 41))
+                            ).astype(np.int32) for _ in range(6)]
+    outs = {}
+    for device in ("cuda", "cpu"):
+        eng = LLMEngine(arch, bridge.params_from_numpy(npp, device),
+                        EngineConfig(slots=4, max_len=64, admit_window=2,
+                                     block_len=4), device=device)
+        if not eng.backend.ring:
+            raise AssertionError("gemma3-4b-smoke at max_len 64: no ring")
+        hs = [eng.add_request(p, max_new_tokens=12) for p in prompts]
+        eng.run_until_drained()
+        outs[device] = [eng.request(h).output for h in hs]
+    same = sum(a == b for x, y in zip(outs["cuda"], outs["cpu"])
+               for a, b in zip(x, y))
+    total = sum(len(x) for x in outs["cpu"])
+    if same / total < 0.9:
+        raise AssertionError(f"ring pools, card vs CPU greedy tokens: "
+                             f"{same}/{total} agree")
+    return same, total
+
+
+def serve_ring(torch, cfg, archs, params, prompts, slots, max_new, max_len,
+               blk, spec_k):
+    """``cfg`` served on its ring pools three times — int8 pools, bf16
+    pools, and int8 pools with the prefix cache, chunked prefill and spec
+    asked for — each through ``serve`` (launch counts set to 0 just before
+    and read just after). Checks the pool bytes against the ring layout,
+    one attention launch a layer and (int8) seven GEMMs a layer per decode
+    step, and the opt-outs; returns the runs by label."""
+    from repro_torch.models.cache import blocks_for, ring_blocks_for
+
+    pattern, n_groups, tail = cfg.layer_layout()
+    n_local = n_groups * pattern.count("L") + tail.count("L")
+    n_layers = cfg.n_layers
+    num_blocks = blocks_for(slots * max_len, blk) + 1
+    ring_rows = 1 + slots * ring_blocks_for(cfg.local_window, blk)
+    runs = {}
+    for label, pool, kw in (
+            ("int8", "int8", {}), ("bf16", "bf16", {}),
+            ("int8 opt-outs", "int8",
+             dict(prefix_cache=True, prefill_chunk_tokens=512,
+                  spec_tokens=spec_k))):
+        r = serve(torch, archs[pool], params, prompts, slots, max_new,
+                  max_len=max_len, **kw)
+        runs[label] = r
+        row = pool_row_bytes(torch, cfg, blk, pool == "int8")
+        want_bytes = ((n_layers - n_local) * num_blocks
+                      + n_local * ring_rows) * row
+        if r["pool_bytes"] != want_bytes:
+            raise AssertionError(f"{cfg.name} {label}: pool_bytes "
+                                 f"{r['pool_bytes']}, want {want_bytes}")
+        print(f"serve {cfg.name} {label}: {len(prompts)} requests x {max_new} "
+              f"tokens ({r['prompt_tokens']} prompt tokens, longest "
+              f"{max(len(p) for p in prompts)}, window {cfg.local_window}), "
+              f"tokens/s={r['tokens_per_s']:.2f} iter_ms(p50)="
+              f"{r['decode_ms_per_iter_p50']:.2f} iter_ms(p99)="
+              f"{r['iter_ms_p99']:.2f} iter_ms(max)={r['iter_ms_max']:.2f} "
+              f"ttft_avg_s={r['ttft_avg_s']:.4f} "
+              f"iterations={r['iterations']:.0f} "
+              f"decode_dispatches={r['decode_dispatches']:.0f} "
+              f"preemptions={r['preemptions']} "
+              f"prefill_chunks_dispatched={r['chunks']:.0f} "
+              f"spec_drafted={r['spec_drafted']:.0f} "
+              f"prefix_cache_hit_rate={r['prefix_cache_hit_rate']:.4f} "
+              f"pool_bytes={r['pool_bytes']} (ring pools of {ring_rows} rows "
+              f"for {n_local} L layers; full history at max_len {max_len}: "
+              f"{n_layers * num_blocks * row}) "
+              f"kernels={json.dumps(r['launches'])}", flush=True)
+        attn = "paged_attention_int8" if pool == "int8" else "paged_attention"
+        want = {attn: n_layers * r["decode_dispatches"],
+                "int8_gemm": (7 * n_layers * r["decode_dispatches"]
+                              if pool == "int8" else 0),
+                "paged_attention_verify": 0,
+                "paged_attention_verify_int8": 0}
+        for k, n in want.items():
+            if r["launches"][k] != n:
+                raise AssertionError(
+                    f"{cfg.name} {label}: {k} launched {r['launches'][k]} "
+                    f"times, want {n} for {r['decode_dispatches']:.0f} "
+                    f"decode steps")
+    opt = runs["int8 opt-outs"]
+    if opt["chunks"] != 0 or opt["spec_drafted"] != 0 \
+            or opt["prefix_cache_hit_rate"] != 0 \
+            or opt["prefix_hit_blocks"] != 0:
+        raise AssertionError("the ring layout did not opt out of chunking, "
+                             "spec or the prefix cache")
+    if opt["outputs"] != runs["int8"]["outputs"]:
+        raise AssertionError("the opt-out run's greedy tokens differ from "
+                             "the plain int8 run's")
+    return runs
+
+
+def pool_row_bytes(torch, cfg, blk, int8):
+    """Bytes of one pool row of one layer: K and V blocks, and the two
+    per-block scales on int8 pools."""
+    esz = 1 if int8 else torch.empty((), dtype=cfg.compute_dtype
+                                     ).element_size()
+    return 2 * cfg.n_kv_heads * blk * cfg.hd * esz + (8 if int8 else 0)
+
+
 # the kernel whose library builds last; checked at the start of phase 6
 LAST_BUILT = "ita_attention"
 
@@ -1656,6 +2030,11 @@ def main() -> None:
                check_rglru(torch, rcfg,
                            [1, 5, 255, 256, 257, 512, 2048, 2300], 512),
                check_int_softmax(torch, cfg, flush, read_flush)]
+    gcfg = configs.get_config("gemma3-4b")
+    g_max_len = 4096 + max_new
+    g_attn = [check_ring_attention(torch, gcfg, blk, g_max_len, flush,
+                                   int8=i8) for i8 in (False, True)]
+    g_gemm = check_int8_gemm_shapes(torch, gcfg, (1, slots), read_flush)
     del scratch
     for e in entries:
         print_entry(e)
@@ -1737,6 +2116,26 @@ def main() -> None:
               flush=True)
     print("verify kernels at Q=1 and in row 0: bit-equal to decode (serving "
           "lens and split-boundary lens)", flush=True)
+    for e in g_attn:
+        print(f"kernel {e['name']} at gemma3-4b's geometry (Hq={gcfg.n_heads} "
+              f"Hkv={gcfg.n_kv_heads} D={gcfg.hd} blk={blk}, window "
+              f"{gcfg.local_window}; ring rows: 65 entries, start = first·16 "
+              f"for first in {list(RING_FIRSTS)}, lens-start "
+              f"{list(RING_RELS)}; full rows: {-(-g_max_len // blk)} "
+              f"entries, lens {list(FULL_LENS)}): {e['cases_checked']} cases "
+              f"allclose, max |err| {json.dumps(e['errs'])}", flush=True)
+        for label, t in e["timing"].items():
+            print(f"kernel {e['name']} gemma3-4b {label} ({t['rows']}): "
+                  f"kernel_ms={t['ms']:.4f} device_ms={opt_ms(t['device_ms'])}"
+                  f" plain_ms={t['plain_ms']:.4f} library_ms="
+                  f"{t['library_ms']:.4f} bound_ms={t['bound_ms']:.5f} "
+                  f"({t['bound_by']}) grid {t['grid']}", flush=True)
+    print(f"kernel int8_gemm at gemma3-4b's projections "
+          f"{json.dumps(g_gemm['shapes'])} (K, N): {g_gemm['cases_checked']} "
+          f"cases bit-exact at M=1 and M={slots}; one layer at "
+          f"M={g_gemm['m']}: kernel_ms={g_gemm['ms']:.4f} device_ms="
+          f"{opt_ms(g_gemm['device_ms'])} bound_ms={g_gemm['bound_ms']:.4f} "
+          f"({g_gemm['bound_by']})", flush=True)
 
     # -- phase 3: full-width glm4-9b through LLMEngine ----------------------
     phase(3, "glm4-9b on the paged backend")
@@ -2004,6 +2403,42 @@ def main() -> None:
                                  f"{r['b6_launches']} times")
         main_counts["ita_attention"] += r["launches"]["ita_attention"]
         main_counts["int_softmax"] += r["launches"]["int_softmax"]
+
+    # -- phase 7: full-width gemma3-4b on the paged ring pools -------------
+    phase(7, "gemma3-4b on the paged ring pools")
+    same_f, total_f = small_input_ring_agreement(torch, quant=False)
+    same_q, total_q = small_input_ring_agreement(torch, quant=True)
+    print(f"small input gemma3-4b-smoke (window 16, ring pools): card vs CPU "
+          f"greedy tokens: float {same_f}/{total_f}, int8 {same_q}/{total_q}",
+          flush=True)
+    garch_f = registry.build(dataclasses.replace(gcfg, serve_quant=False))
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    gparams = schema.init_params(garch_f.schema(), gen, "cuda",
+                                 dtype=gcfg.compute_dtype)
+    torch.cuda.synchronize()
+    print(f"gemma3-4b params: "
+          f"{schema.param_count(garch_f.schema()) / 1e9:.2f} B "
+          f"({time.perf_counter() - t0:.1f} s to draw on the card)", flush=True)
+    garchs = {"bf16": garch_f, "int8": registry.build(gcfg)}
+    prompts = ring_prompts(gcfg.vocab, seed=12)
+    gruns = serve_ring(torch, gcfg, garchs, gparams, prompts, slots, max_new,
+                       g_max_len, blk, spec_k)
+    st = decode_steps(torch, garchs["int8"], gparams, slots, prompt_len=1100,
+                      max_len=1312)
+    print(f"gemma3-4b decode steps (int8 pools, {slots} slots running "
+          f"1100-token prompts: ring rows rotating): step p50 "
+          f"{st['step_ms_p50']:.2f} ms (host clock), device "
+          f"{st['device_ms']:.3f} ms a step of which int8_gemm "
+          f"{st['gemm_device_ms']:.3f} ms and paged_attention_int8 "
+          f"{st['attn_device_ms']:.3f} ms, {st['kernels']:.0f} kernels a step "
+          f"(torch.profiler)", flush=True)
+    for name, label in (("paged_attention", "bf16"),
+                        ("paged_attention_int8", "int8"),
+                        ("int8_gemm", "int8")):
+        main_counts[name] += gruns[label]["launches"][name]
+    del gparams, gruns
+    torch.cuda.empty_cache()
 
     for e in entries:
         e["launches"] = main_counts[e["name"]]

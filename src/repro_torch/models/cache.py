@@ -111,9 +111,17 @@ class PagedLayout:
     ``num_blocks`` counts pool rows *including* the trash block, so usable
     capacity is ``(num_blocks - 1) * block_len`` tokens. ``max_blocks`` is
     the block-table width — the per-slot worst case ``ceil(max_len /
-    block_len)``. ``window``/``ring_num_blocks`` describe the reference's
-    ring-block layout for sliding-window layers, which this port's serving
-    path does not implement yet (the backend refuses it).
+    block_len)``.
+
+    ``window`` set (the backend sets it when a sliding-window layer's
+    window is shorter than ``max_len``) makes every sliding-window ("L")
+    layer's pool a ring arena of ``ring_num_blocks`` rows (trash included;
+    the backend sizes it ``1 + slots · ring_blocks``): each slot owns a
+    fixed ring of ``ring_blocks`` blocks and reuses them in a circle, so an
+    L layer's residency is bounded by the window, not by ``max_len``. Its
+    per-slot ring table is rotated host-side as the window slides (entry 0
+    is the oldest live block; see ``ring_table_row``). The other layers
+    keep the full-history table.
     """
 
     block_len: int
@@ -538,6 +546,67 @@ def prefill_write_kv(pool: torch.Tensor, single: torch.Tensor,
     # [1, Hkv, nb·blk, D] → [nb, Hkv, blk, D]
     src = src[0].reshape(hkv, nb, blk, d).transpose(0, 1)
     pool[block_ids.long()] = src.to(pool.dtype)
+
+
+def ring_table_row(ring_ids, first_bi: int) -> List[int]:
+    """Host-side rotated ring-table row: entry ``j`` is the pool block of
+    absolute block index ``first_bi + j`` (entry 0 = oldest live block)."""
+    wb = len(ring_ids)
+    return [int(ring_ids[(first_bi + j) % wb]) for j in range(wb)]
+
+
+def ring_write_index(ring_ids: torch.Tensor, true_len: int, block_len: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(source block, target pool row) pairs of a ring prefill write, one
+    pair a ring entry, as ``ring_prefill_write_kv`` writes them: entry
+    ``r`` takes the unique absolute block ``bi`` in ``[first, first + wb)``
+    with ``bi ≡ r (mod wb)``, where ``first`` starts the last ``wb`` blocks
+    up to the one holding position ``true_len - 1``. Entries past that
+    block (a short prompt, or pad blocks of an admission bucket) take
+    source block 0 into the trash block, so they never wrap over live
+    history. Computed once a prefill and shared by every ring layer."""
+    wb = ring_ids.shape[0]
+    last_bi = max(int(true_len) - 1, 0) // block_len
+    first_bi = max(last_bi - (wb - 1), 0)
+    bi = first_bi + (np.arange(wb) - first_bi) % wb
+    live = bi <= last_bi
+    src = torch.from_numpy(np.where(live, bi, 0)).to(ring_ids.device)
+    tgt = torch.where(torch.from_numpy(live).to(ring_ids.device),
+                      ring_ids.long(), TRASH_BLOCK)
+    return src, tgt
+
+
+def ring_prefill_write_kv(pool: torch.Tensor, single: torch.Tensor,
+                          ring_ids: torch.Tensor, true_len,
+                          index: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None) -> None:
+    """Paged-prefill write for a sliding-window (ring) layer, in place.
+
+    Only the last ``ring_blocks`` blocks of the prefill matter (decode
+    attention never reaches further back than ``window`` positions, and
+    ``ring_blocks·block_len ≥ window + block_len``), so absolute block
+    index ``bi`` goes to the slot's ring block ``ring_ids[bi %
+    ring_blocks]`` — the convention of the backend's rotating ring table.
+    Blocks past the last *true* position are diverted to the trash block,
+    so a padded admission bucket never wraps over live history.
+
+    ``pool`` [N_ring, Hkv, blk, D] (one layer's ring pool), ``single``
+    [1, Hkv, S, D] prefill K or V (S ≥ true_len), ``ring_ids``
+    [ring_blocks] int, ``index`` the pairs of ``ring_write_index`` (computed
+    here when not given). The reference writes one block a ring entry in a
+    loop; here all ``ring_blocks`` (source, target) pairs go in one indexed
+    assignment. The writes agree bit for bit: live targets are distinct,
+    and every diverted entry writes the same source block 0 into trash.
+    """
+    _, hkv, blk, d = pool.shape
+    if index is None:
+        index = ring_write_index(ring_ids, true_len, blk)
+    src_ids, tgt = index
+    nb = -(-single.shape[-2] // blk)
+    src = _pad_to_blocks(single, nb, blk)
+    # [1, Hkv, nb·blk, D] → [nb, Hkv, blk, D]
+    src = src[0].reshape(hkv, nb, blk, d).transpose(0, 1)
+    pool[tgt] = src[src_ids].to(pool.dtype)
 
 
 def gather_prefix_kv(pool: torch.Tensor, prefix_ids: torch.Tensor,

@@ -193,53 +193,65 @@ def init_paged_cache(cfg: ModelConfig, slots: int, layout, *,
     position vector. Int8 pools (``quantized``, default
     ``cfg.serve_quant``) carry per-block scale vectors ``kscale``/``vscale``
     ([n_stack, num_blocks] f32, filled with the static ``attn.KV_SCALE``
-    calibration)."""
+    calibration).
+
+    When ``layout.window`` is set, sliding-window ("L") stacks are sized
+    ``layout.ring_num_blocks`` rows, their scale vectors too: each slot
+    reuses a fixed ring of ``layout.ring_blocks`` blocks, so an L layer's
+    residency is bounded by the window, not ``max_len``."""
     device = resolve_device(device)
-    if getattr(layout, "window", None) is not None:
-        raise NotImplementedError(
-            "ring-block (sliding-window) pools are not ported yet")
     if quantized is None:
         quantized = cfg.serve_quant
     pattern, n_groups, tail = cfg.layer_layout()
     hd, nkv = cfg.hd, cfg.n_kv_heads
     dt = torch.int8 if quantized else cfg.compute_dtype
+    ring = getattr(layout, "window", None) is not None
 
-    def kv(n_stack):
-        shape = (n_stack, layout.num_blocks, nkv, layout.block_len, hd)
+    def kv(n_stack, kind):
+        n_blocks = (layout.ring_num_blocks if ring and kind == "L"
+                    else layout.num_blocks)
+        shape = (n_stack, n_blocks, nkv, layout.block_len, hd)
         c = {"k": torch.zeros(shape, dtype=dt, device=device),
              "v": torch.zeros(shape, dtype=dt, device=device)}
         if quantized:
-            c["kscale"] = torch.full((n_stack, layout.num_blocks),
+            c["kscale"] = torch.full((n_stack, n_blocks),
                                      attn.KV_SCALE, dtype=torch.float32,
                                      device=device)
-            c["vscale"] = torch.full((n_stack, layout.num_blocks),
+            c["vscale"] = torch.full((n_stack, n_blocks),
                                      attn.KV_SCALE, dtype=torch.float32,
                                      device=device)
         return c
 
     cache: Dict[str, Any] = {
-        "stacks": [kv(n_groups) for _ in pattern],
+        "stacks": [kv(n_groups, kind) for kind in pattern],
         "len": torch.zeros((slots,), dtype=torch.int32, device=device),
     }
     if tail:
-        cache["tail"] = [kv(1) for _ in tail]
+        cache["tail"] = [kv(1, kind) for kind in tail]
     return cache
 
 
 def _resolve_paged_table(table, kind: str):
-    """(block table, start vector or None) for a layer of ``kind``. The
-    port takes the plain ``[slots, max_blocks]`` table only (ring tables
-    are not ported)."""
+    """(block table, start vector or None) for a layer of ``kind``.
+
+    ``table`` is either a plain ``[slots, max_blocks]`` tensor (every layer
+    walks the full-history table from position 0) or the ring dict
+    ``{"full", "ring", "start"}`` the backend passes when sliding-window
+    layers store ring blocks: L layers then walk the rotating ring table,
+    whose entry 0 sits at absolute position ``start[slot]``."""
     if isinstance(table, dict):
-        raise NotImplementedError("ring block tables are not ported yet")
+        if kind == "L":
+            return table["ring"], table["start"]
+        return table["full"], None
     return table, None
 
 
 def _paged_cache_write(c, k_new, v_new, pos, table, block_len: int,
                        start=None):
     """Scatter one token's k/v at per-row position ``pos`` through the
-    block table, in place. Empty rows point at the trash block (table row
-    zeros), so their writes are harmless."""
+    block table, in place (ring tables pass ``start``, the absolute
+    position of table entry 0). Empty rows point at the trash block (table
+    row zeros), so their writes are harmless."""
     rows_b = pos.shape[0]
     max_blocks = table.shape[1]
     rel = pos if start is None else pos - start
@@ -315,12 +327,18 @@ def paged_decode_step(params, cache, tokens, cfg: ModelConfig, table, *,
 
     ``table`` [slots, max_blocks] int32 maps each row's position ``p`` to
     pool block ``table[row, p // block_len]`` (offset ``p % block_len``);
-    the engine owns it host-side and passes it each call. Returns
+    the engine owns it host-side and passes it each call. On a ring layout
+    it is the dict ``{"full": [slots, max_blocks], "ring": [slots,
+    ring_blocks], "start": [slots]}``: sliding-window layers walk ``ring``
+    from absolute position ``start`` (``_resolve_paged_table``). Returns
     ``(logits [slots, V], cache)`` with ``cache["len"]`` advanced by one.
     """
     x = nn.embed(tokens[:, None], params["embed"], cfg.compute_dtype)
     pos = cache["len"].to(torch.int32).expand(x.shape[0])
-    table = table.to(torch.int32)
+    if isinstance(table, dict):
+        table = {k: v.to(torch.int32) for k, v in table.items()}
+    else:
+        table = table.to(torch.int32)
     for kind, where, g in _layers(cfg):
         qp = None if qparams is None else _entry(qparams, where, g)
         x = _paged_decode_layer(
@@ -443,7 +461,7 @@ def paged_verify_step(params, cache, tokens, cfg: ModelConfig, table, *,
 
 
 def paged_prefill(params, tokens, cfg: ModelConfig, cache, slot, block_ids,
-                  *, true_len=None, prefix_ids=None, start=0):
+                  *, ring_ids=None, true_len=None, prefix_ids=None, start=0):
     """Prefill straight into pool blocks: forward pass + per-layer K/V
     writes into the paged ``cache`` (in place). Returns ``(last-position
     logits, cache)``.
@@ -451,30 +469,40 @@ def paged_prefill(params, tokens, cfg: ModelConfig, cache, slot, block_ids,
     ``tokens`` [1, S] may be right-padded to an admission bucket;
     ``true_len`` is then the real (total) length (logits are taken at
     position ``true_len - 1`` and ``slot``'s position counter is set to
-    it). Every layer writes ``len(block_ids)`` blocks, the partially-valid
-    tail block whole. ``prefix_ids``/``start`` resume a prefix-cache hit:
-    the first ``start = len(prefix_ids)·block_len`` positions already live
-    in pool blocks ``prefix_ids``, ``tokens`` carries only the suffix, and
-    the cached blocks are attended, not recomputed. Ring writes are not
-    ported yet."""
+    it). Full-history layers write ``len(block_ids)`` blocks, the
+    partially-valid tail block whole; with ``ring_ids`` sliding-window
+    ("L") layers write only the last ``len(ring_ids)`` blocks, circularly
+    (``cache.ring_prefill_write_kv``). ``prefix_ids``/``start`` resume a
+    prefix-cache hit: the first ``start = len(prefix_ids)·block_len``
+    positions already live in pool blocks ``prefix_ids``, ``tokens``
+    carries only the suffix, and the cached blocks are attended, not
+    recomputed."""
     return _paged_prefill_impl(params, tokens, cfg, cache, slot, block_ids,
-                               layer_fn=_prefill_layer, true_len=true_len,
-                               prefix_ids=prefix_ids, start=start)
+                               layer_fn=_prefill_layer, ring_ids=ring_ids,
+                               true_len=true_len, prefix_ids=prefix_ids,
+                               start=start)
 
 
 def _paged_prefill_impl(params, tokens, cfg: ModelConfig, cache, slot,
-                        block_ids, *, layer_fn, true_len=None,
+                        block_ids, *, layer_fn, ring_ids=None, true_len=None,
                         prefix_ids=None, start=0):
     """Shared paged-prefill scaffold (block writes, layer loop, last-real-
     token logits, slot position update). Int8 pools requantize K/V
     (``cache.quantize_kv``, static ``attn.KV_SCALE``) before the write.
     With ``prefix_ids`` each layer gathers the cached prefix K/V (int8
     pools dequantized by their per-block scales) before its suffix write —
-    the prefix blocks are disjoint from ``block_ids``."""
+    the prefix blocks are disjoint from ``block_ids``. Ring layers cannot
+    resume (the skipped prefix would leave their ring unwritten), so
+    ``prefix_ids`` with ``ring_ids`` is refused; the backend turns prefix
+    caching off on ring layouts."""
     from repro_torch.models.cache import (
         gather_prefix_kv, prefill_write_kv, quantize_kv,
+        ring_prefill_write_kv, ring_write_index,
     )
 
+    if prefix_ids is not None and ring_ids is not None:
+        raise ValueError("prefix-cache resume is incompatible with ring "
+                         "(sliding-window) prefill")
     x = nn.embed(tokens, params["embed"], cfg.compute_dtype)
     s = x.shape[1]
     start = int(start)
@@ -484,6 +512,13 @@ def _paged_prefill_impl(params, tokens, cfg: ModelConfig, cache, slot,
         prefix_ids = torch.as_tensor(prefix_ids, dtype=torch.long,
                                      device=x.device)
     n = start + s if true_len is None else int(true_len)
+    ring_index = None
+    if ring_ids is not None:
+        ring_ids = torch.as_tensor(ring_ids, dtype=torch.long,
+                                   device=x.device)
+        # the (source block, ring row) pairs are the same for every layer
+        block_len = cache["stacks"][0]["k"].shape[3]
+        ring_index = ring_write_index(ring_ids, n, block_len)
 
     for kind, where, g in _layers(cfg):
         c = _entry(cache, where, g)
@@ -496,8 +531,12 @@ def _paged_prefill_impl(params, tokens, cfg: ModelConfig, cache, slot,
         if c["k"].dtype == torch.int8:
             k = quantize_kv(k, attn.KV_SCALE)
             v = quantize_kv(v, attn.KV_SCALE)
-        prefill_write_kv(c["k"], k, block_ids)
-        prefill_write_kv(c["v"], v, block_ids)
+        if kind == "L" and ring_ids is not None:
+            ring_prefill_write_kv(c["k"], k, ring_ids, n, ring_index)
+            ring_prefill_write_kv(c["v"], v, ring_ids, n, ring_index)
+        else:
+            prefill_write_kv(c["k"], k, block_ids)
+            prefill_write_kv(c["v"], v, block_ids)
 
     x = nn.rms_norm(x, params["final_norm"])
     table_w = params["embed"] if cfg.tie_embeddings else params["unembed"]

@@ -15,16 +15,19 @@ selected by ``EngineConfig.backend``:
   * ``paged`` — :class:`PagedBackend`: continuous batching over a shared
     pool of fixed-size KV blocks (``models.cache.PagedLayout``) with
     host-owned block tables, paged prefill straight into pool blocks, int8
-    block storage for quantized archs, prefix caching (content-addressed
-    block sharing with copy-on-write and suffix-resume prefill),
-    speculative decoding (small-q verify, commit and block rollback) and
-    chunked prefill (block-aligned chunks under a token budget).
+    block storage for quantized archs, ring-block pools for sliding-window
+    layers whose window is shorter than ``max_len``, prefix caching
+    (content-addressed block sharing with copy-on-write and suffix-resume
+    prefill), speculative decoding (small-q verify, commit and block
+    rollback) and chunked prefill (block-aligned chunks under a token
+    budget). Ring layouts opt out of the last three, silently, as in the
+    reference.
 
 Which families serve on which backend is ``registry.Arch.serve_backends``:
 in the port the ``ssm`` and ``hybrid`` families serve on ``slot``/``arena``
 and the dense family on ``paged``. Not ported yet (refused with
-``NotImplementedError``): the dense family on ``slot``/``arena``, ring
-blocks for sliding-window layers and mesh sharding.
+``NotImplementedError``): the dense family on ``slot``/``arena``, and
+mesh sharding.
 """
 
 from __future__ import annotations
@@ -39,7 +42,8 @@ import torch
 from repro_torch.models import registry
 from repro_torch.models.cache import (
     BlockAllocator, PagedLayout, blocks_for, bucket_for, cache_insert,
-    chain_key, chain_seed, copy_block, prefix_chain_keys,
+    chain_key, chain_seed, copy_block, prefix_chain_keys, ring_blocks_for,
+    ring_table_row,
 )
 from repro_torch.serve.config import BACKENDS, EngineConfig
 from repro_torch.serve.request import Request
@@ -151,9 +155,8 @@ class _BackendBase:
 
 def validate_paged_config(arch: registry.Arch, ec: EngineConfig) -> None:
     """Construction-time checks for the paged backend: the family must
-    page (recurrent state has no growing KV cache), quantized archs need
-    int8 block-pool support, and layouts the port has not implemented are
-    refused by name."""
+    page (recurrent state has no growing KV cache), and quantized archs
+    need int8 block-pool support."""
     cfg = arch.cfg
     if not arch.supports_paged:
         bad = "".join(sorted(set(cfg.pattern) - set("GLB")))
@@ -172,13 +175,6 @@ def validate_paged_config(arch: registry.Arch, ec: EngineConfig) -> None:
         raise ValueError(
             f"paged serving: arch {cfg.name!r} is quantized (serve_quant) "
             f"but the family does not support int8 block pools")
-    if "L" in cfg.pattern and cfg.local_window < ec.max_len:
-        # with the ring blocks comes the reference's automatic opt-out of
-        # ring layouts from chunked prefill, prefix caching and spec
-        raise NotImplementedError(
-            f"ring layout: arch {cfg.name!r} has sliding-window layers "
-            f"(local_window={cfg.local_window} < max_len={ec.max_len}), "
-            f"whose ring-block pools are not ported yet")
 
 
 class ArenaBackend(_BackendBase):
@@ -314,6 +310,16 @@ class PagedBackend(_BackendBase):
     runs as block-aligned chunks, each within the engine's per-iteration
     token budget; every chunk resumes after the blocks already written,
     the same suffix-resume path a prefix-cache hit takes.
+
+    **Ring blocks** (a sliding-window layer whose window is shorter than
+    ``max_len``): L layers store K/V in a separate ring arena where each
+    slot owns ``ring_blocks`` blocks, reserved at admission from
+    ``ring_alloc``; the host rotates the slot's ``ring_table`` row and
+    ``ring_start`` as the window slides, and the decode step gets the dict
+    ``{"full", "ring", "start"}`` of device tables. A ring layout turns
+    prefix caching, chunked prefill and speculation off (a ring cannot
+    resume mid-history, and its rotation assumes one position an
+    iteration); the engine then runs monolithic prefills and plain decode.
     """
 
     name = "paged"
@@ -325,13 +331,36 @@ class PagedBackend(_BackendBase):
         num_blocks = ec.num_blocks
         if num_blocks is None:  # match the dense arena's token budget
             num_blocks = blocks_for(ec.slots * ec.max_len, ec.block_len) + 1
-        self.layout = PagedLayout(ec.block_len, num_blocks, ec.max_len)
-        self.prefix_caching = bool(ec.prefix_cache)
+        cfg = arch.cfg
+        # ring blocks when sliding-window layers can't hold full history
+        self.ring = "L" in cfg.pattern and cfg.local_window < ec.max_len
+        wb = ring_blocks_for(cfg.local_window, ec.block_len) if self.ring \
+            else 0
+        self.layout = PagedLayout(
+            ec.block_len, num_blocks, ec.max_len,
+            window=cfg.local_window if self.ring else None,
+            ring_num_blocks=(1 + ec.slots * wb) if self.ring else 0)
+        # prefix caching on full-history layouts only: a ring layout
+        # skipping its prefix prefill would leave the sliding-window pools
+        # unwritten for in-window prefix positions
+        self.prefix_caching = bool(ec.prefix_cache) and not self.ring
         self.alloc = BlockAllocator(self.layout,
                                     prefix_cache=self.prefix_caching)
+        # full-history blocks are consumed by non-L layers only; an all-L
+        # pattern reserves none of them
+        self._has_full = not self.ring or any(k != "L" for k in cfg.pattern)
         self.table = np.zeros((ec.slots, self.layout.max_blocks), np.int32)
+        if self.ring:
+            # the ring arena always fits every slot's ring (sized above),
+            # but runs through an allocator so leaks and double frees show
+            self.ring_alloc = BlockAllocator(PagedLayout(
+                ec.block_len, self.layout.ring_num_blocks, ec.max_len))
+            self.ring_table = np.zeros((ec.slots, wb), np.int32)
+            self.ring_start = np.zeros((ec.slots,), np.int32)
+            self._ring_first = [0] * ec.slots   # abs block index of entry 0
+            self._ring_ids: List[Optional[np.ndarray]] = [None] * ec.slots
         self._slot_len = [0] * ec.slots   # host mirror of active rows' len
-        self._tables_dev: Optional[torch.Tensor] = None
+        self._tables_dev = None           # device copy of the tables
         # prefix cache: per-slot chain keys of the full blocks written so
         # far (prompt at prefill, decode blocks as they complete), and a
         # bounded per-rid chain-key memo — can_admit() re-keys every queued
@@ -343,13 +372,16 @@ class PagedBackend(_BackendBase):
         self.prefill_tokens_skipped = 0
         self.prefill_tokens_total = 0
         # chunked prefill: admissions split into block-aligned chunks
-        # co-scheduled with decode
-        self.chunking = ec.prefill_chunk_tokens is not None
+        # co-scheduled with decode; rings opt out (a ring arena cannot
+        # resume mid-history) and the engine prefills whole prompts
+        self.chunking = ec.prefill_chunk_tokens is not None and not self.ring
         # per-slot admission state between prefill_begin and the final
         # prefill_chunk
         self._chunk: Dict[int, dict] = {}
         self.prefill_chunk_dispatches = 0
-        self.spec_supported = arch.supports_spec_decode
+        # speculation: rings opt out (ring rotation assumes one position an
+        # iteration) and the engine runs plain decode
+        self.spec_supported = arch.supports_spec_decode and not self.ring
         self.quantized = bool(arch.cfg.serve_quant)
         self.cache = arch.init_paged_cache(ec.slots, self.layout,
                                            device=device)
@@ -376,8 +408,12 @@ class PagedBackend(_BackendBase):
                    blocks_for(min(bucket, cap), blk) * blk)
 
     def _max_blocks_needed(self, req: Request) -> int:
-        """Worst-case block reservation: the prefill extent now, or the
-        final decode position, whichever is larger."""
+        """Worst-case full-history block reservation: the prefill extent
+        now, or the final decode position, whichever is larger. An all-L
+        pattern consumes no full-history blocks (its ring reservation is a
+        fixed ``ring_blocks`` a slot, accounted separately)."""
+        if not self._has_full:
+            return 0
         final_pos = len(req.prompt) + req.max_new_tokens - 1
         return blocks_for(max(self._pre_len(req), final_pos),
                           self.ec.block_len)
@@ -432,16 +468,26 @@ class PagedBackend(_BackendBase):
                 f"request {req.rid} needs {need} blocks; pool has {usable}")
 
     def can_admit(self, req: Request) -> bool:
-        return self.alloc.can_admit(self._max_blocks_needed(req),
-                                    self._admit_keys(req))
+        if not self.alloc.can_admit(self._max_blocks_needed(req),
+                                    self._admit_keys(req)):
+            return False
+        return not self.ring or self.ring_alloc.can_admit(
+            self.layout.ring_blocks)
 
     def release(self, slot: int, req: Request) -> None:
-        """Recycle a slot's blocks and point its table row at trash. Also
-        the ``abort()`` path. With prefix caching the release decrefs:
-        shared blocks survive under their other references, and published
-        sole-owned blocks move to the cached LRU (reusable K/V)."""
+        """Recycle a slot's blocks (full and ring) and point its table rows
+        at trash. Also the ``abort()`` path. With prefix caching the
+        release decrefs: shared blocks survive under their other
+        references, and published sole-owned blocks move to the cached LRU
+        (reusable K/V)."""
         self.alloc.release(req.rid)
         self.table[slot, :] = 0
+        if self.ring:
+            self.ring_alloc.release(req.rid)
+            self.ring_table[slot, :] = 0
+            self.ring_start[slot] = 0
+            self._ring_first[slot] = 0
+            self._ring_ids[slot] = None
         self._touch_tables()
         self._slot_len[slot] = 0
         self._slot_keys[slot] = []
@@ -476,16 +522,36 @@ class PagedBackend(_BackendBase):
         return evicted
 
     def _touch_tables(self) -> None:
-        """Invalidate the cached device copy of the block table."""
+        """Invalidate the cached device copy of the tables (after any host
+        write to ``table``, ``ring_table`` or ``ring_start``)."""
         self._tables_dev = None
 
-    def _tables(self) -> torch.Tensor:
-        """Device copy of the host-owned block table, re-uploaded only
-        after a host write (growth touches one slot every block_len
-        tokens)."""
+    def _tables(self):
+        """Device copy of the host-owned block table (on a ring layout the
+        dict ``{"full", "ring", "start"}``), re-uploaded only after a host
+        write (growth touches one slot every block_len tokens, a ring
+        rotation one slot every block_len tokens). Each upload is a
+        synchronous copy, never a view of the host arrays: the host
+        rewrites them right after a dispatch."""
         if self._tables_dev is None:
-            self._tables_dev = torch.from_numpy(self.table).to(self.device)
+            def upload(a):
+                return torch.tensor(a, device=self.device)
+
+            self._tables_dev = upload(self.table) if not self.ring else {
+                "full": upload(self.table), "ring": upload(self.ring_table),
+                "start": upload(self.ring_start)}
         return self._tables_dev
+
+    @property
+    def pool_bytes(self) -> int:
+        """Resident bytes of the KV block pools (the full-history and ring
+        arenas, scale vectors included) — what the ring layout bounds by
+        the window and the int8 layout halves."""
+        return int(sum(c[key].numel() * c[key].element_size()
+                       for group in ("stacks", "tail")
+                       for c in self.cache.get(group, ())
+                       for key in ("k", "v", "kscale", "vscale")
+                       if key in c))
 
     # -- iteration hooks ---------------------------------------------------
 
@@ -502,37 +568,55 @@ class PagedBackend(_BackendBase):
             req = slots[i]
             span = 1 if spans is None else spans[i]
             last_pos = self._slot_len[i] + span - 1
-            needed = last_pos // blk + 1
-            owned = self.alloc.owned(req.rid)
-            while len(owned) < needed:
-                b = self.alloc.grow(req.rid)
-                self.table[i, len(owned)] = b
-                self._touch_tables()
-                owned.append(b)
-            if not self.prefix_caching:
-                continue
-            # publish decode blocks as they complete: position p holds the
-            # K/V of seq[p], and the engine appends fetched tokens before
-            # the next begin_iteration, so seq always covers _slot_len
-            n_full = self._slot_len[i] // blk
-            keys = self._slot_keys[i]
-            if len(keys) < n_full:
-                seq = continuation_tokens(req)
-                salt = self._chain_salt(req)
-                while len(keys) < n_full:
-                    idx = len(keys)
-                    prev = keys[idx - 1] if idx else chain_seed(blk, salt)
-                    key = chain_key(prev, seq[idx * blk:(idx + 1) * blk])
-                    keys.append(key)
-                    self.alloc.register(req.rid, idx, key)
-            # copy-on-write guard over the whole write span
-            for tail in range(self._slot_len[i] // blk, last_pos // blk + 1):
-                moved = self.alloc.ensure_writable(req.rid, tail)
-                if moved is not None:
-                    old, new = moved
-                    copy_block(self.cache, old, new)
-                    self.table[i, tail] = new
+            if self._has_full:
+                needed = last_pos // blk + 1
+                owned = self.alloc.owned(req.rid)
+                while len(owned) < needed:
+                    b = self.alloc.grow(req.rid)
+                    self.table[i, len(owned)] = b
                     self._touch_tables()
+                    owned.append(b)
+            if self.prefix_caching:
+                self._publish_and_guard(i, req, last_pos)
+            if self.ring:
+                # rotate the ring table when the next write enters a block
+                # past the ring: the evicted oldest block lies wholly below
+                # the window by construction
+                wb = self.layout.ring_blocks
+                next_bi = self._slot_len[i] // blk
+                if next_bi > self._ring_first[i] + wb - 1:
+                    first = next_bi - (wb - 1)
+                    self._ring_first[i] = first
+                    self.ring_table[i, :] = ring_table_row(
+                        self._ring_ids[i], first)
+                    self.ring_start[i] = first * blk
+                    self._touch_tables()
+
+    def _publish_and_guard(self, i: int, req: Request, last_pos: int) -> None:
+        """Prefix caching, before slot ``i`` writes up to ``last_pos``:
+        publish its decode blocks as they complete (position p holds the
+        K/V of seq[p], and the engine appends fetched tokens before the
+        next begin_iteration, so seq always covers _slot_len), then copy
+        any shared block in the write span first (copy-on-write)."""
+        blk = self.ec.block_len
+        n_full = self._slot_len[i] // blk
+        keys = self._slot_keys[i]
+        if len(keys) < n_full:
+            seq = continuation_tokens(req)
+            salt = self._chain_salt(req)
+            while len(keys) < n_full:
+                idx = len(keys)
+                prev = keys[idx - 1] if idx else chain_seed(blk, salt)
+                key = chain_key(prev, seq[idx * blk:(idx + 1) * blk])
+                keys.append(key)
+                self.alloc.register(req.rid, idx, key)
+        for tail in range(self._slot_len[i] // blk, last_pos // blk + 1):
+            moved = self.alloc.ensure_writable(req.rid, tail)
+            if moved is not None:
+                old, new = moved
+                copy_block(self.cache, old, new)
+                self.table[i, tail] = new
+                self._touch_tables()
 
     def decode(self, active, slots, samp, any_sampling):
         logits, self.cache = self.arch.paged_decode_step(
@@ -608,18 +692,35 @@ class PagedBackend(_BackendBase):
             keys_full = self._chain_keys(req)
             j = len(self.alloc.lookup(keys_full[:self._hit_limit(req)]))
         block_ids = np.asarray(
-            self.alloc.admit(req.rid, pre_len // blk,
+            self.alloc.admit(req.rid, pre_len // blk if self._has_full else 0,
                              self._max_blocks_needed(req),
                              keys=keys_full[:j]), np.int32)
         # the table row stays at trash until the prefill completes
         self.table[slot, :] = 0
         self._touch_tables()
+        ring_ids = None
+        if self.ring:
+            wb = self.layout.ring_blocks
+            try:
+                ring_ids = np.asarray(
+                    self.ring_alloc.admit(req.rid, wb, wb), np.int32)
+            except Exception:
+                # admission is all or nothing: a failed ring reservation
+                # hands the full-history reservation back
+                self.alloc.release(req.rid)
+                raise
+            first = max(0, (n - 1) // blk - (wb - 1))
+            self._ring_first[slot] = first
+            self._ring_ids[slot] = ring_ids
+            self.ring_table[slot, :] = ring_table_row(ring_ids, first)
+            self.ring_start[slot] = first * blk
         self._key_memo.pop(req.rid, None)
         req.prefill_pos = j * blk
         self.prefill_tokens_total += j * blk
         self.prefill_tokens_skipped += j * blk
         self._chunk[slot] = dict(toks=toks, n=n, pre_len=pre_len,
-                                 block_ids=block_ids, keys=keys_full)
+                                 block_ids=block_ids, keys=keys_full,
+                                 ring_ids=ring_ids)
 
     def prefill_chunk(self, req: Request, slot: int, budget, samp,
                       any_sampling):
@@ -673,10 +774,13 @@ class PagedBackend(_BackendBase):
         suffix_ids = block_ids[pb:blocks_for(c + width, blk)]
         prefix_ids = (torch.from_numpy(block_ids[:pb]).to(self.device)
                       if pb else None)
+        ring_ids = (None if st["ring_ids"] is None
+                    else torch.from_numpy(st["ring_ids"]).to(self.device))
         logits, self.cache = self.arch.paged_prefill(
             self.params, torch.from_numpy(tokens).to(self.device), self.cache,
             slot, torch.from_numpy(suffix_ids).to(self.device),
-            true_len=true_len, prefix_ids=prefix_ids, start=c)
+            ring_ids=ring_ids, true_len=true_len, prefix_ids=prefix_ids,
+            start=c)
         # only budgeted (chunking) dispatches count: 0 on monolithic engines
         if self.chunking:
             self.prefill_chunk_dispatches += 1

@@ -13,9 +13,11 @@ and validation, with two differences:
   device decides which version of a kernel runs.
 
 Settings the port does not implement yet (a family on a backend whose
-entry points are not ported, ring layouts on the paged backend) are
-accepted here and refused at engine construction with
-``NotImplementedError``.
+entry points are not ported, a mesh) are accepted here and refused at
+engine construction with ``NotImplementedError``. As in the reference, a
+ring layout on the paged backend (sliding-window layers with
+``local_window < max_len``) accepts ``prefix_cache``,
+``prefill_chunk_tokens`` and ``spec_tokens`` and silently turns them off.
 """
 
 from __future__ import annotations

@@ -24,7 +24,10 @@ final state likewise. The RG-LRU scan is allclose with ``rglru_ref``
 most one bf16 ulp apart). The ITA fused int8 attention is bit-exact with
 ``ita_attention_ref`` (over kv heads repeated to the query heads) and the
 ITA integer softmax with ``int_softmax_ref``; ``int8_attention`` on the card
-equals it on the CPU bit for bit.
+equals it on the CPU bit for bit. Paged decode attention is also held at
+gemma3-4b's geometry on ring tables (``start`` in the thousands, window
+1024) and its full-history rows, and the ring-pool engine on
+``gemma3-4b-smoke`` agrees with the CPU's.
 """
 
 import dataclasses
@@ -175,10 +178,14 @@ LENS = [0, 1, 17, 64, 130, 255, 400, 544]
 
 
 def _attn_case(dev, *, pool, hq=32, hkv=2, d=128, blk=16, seed=0,
-               window=None, start=False, qlen=1, lens=LENS):
+               window=None, start=False, qlen=1, lens=LENS, width=None,
+               firsts=None):
+    """A table sized for the longest row plus two blocks (or ``width``
+    entries); ``start`` puts row i's entry 0 at (i % 3)·blk, ``firsts``
+    (cycled over the rows) at first·blk, with lens measured from there."""
     g = torch.Generator(device=dev).manual_seed(seed)
     b = len(lens)
-    m = (max(lens) + 2 * blk + blk - 1) // blk
+    m = width or (max(lens) + 2 * blk + blk - 1) // blk
     n = b * m + 1
     int8 = pool == torch.int8
     q = torch.randn((b, hq, qlen, d), generator=g, device=dev) * 2.0
@@ -200,6 +207,11 @@ def _attn_case(dev, *, pool, hq=32, hkv=2, d=128, blk=16, seed=0,
         st = ((torch.arange(b, device=dev) % 3) * blk).to(torch.int32)
         lens_t = torch.where(lens_t > 0, lens_t + st, 0).to(torch.int32)
         kw["start"] = st
+    if firsts is not None:
+        kw["start"] = torch.tensor([firsts[i % len(firsts)] * blk
+                                    for i in range(b)], dtype=torch.int32,
+                                   device=dev)
+        lens_t = lens_t + kw["start"]
     if int8:
         kw["k_scale"] = torch.rand(n, generator=g, device=dev) * 0.04 + 0.01
         kw["v_scale"] = torch.rand(n, generator=g, device=dev) * 0.04 + 0.01
@@ -381,6 +393,71 @@ def test_verify_kernels_on_split_boundaries(cuda_device, pool, long):
         d1 = dec(q1, *rest, **kw)
         assert torch.equal(ver(q1, *rest, **kw), d1)
         assert torch.equal(out5[:, :, :1], d1)
+
+
+@pytest.mark.parametrize("pool", [torch.float32, torch.bfloat16, torch.int8],
+                         ids=["f32", "bf16", "int8"])
+@pytest.mark.parametrize("rows", ["ring", "full"])
+def test_paged_attention_gemma3_ring_and_full_rows(cuda_device, pool, rows):
+    """B1/B2 at gemma3-4b's geometry, as the ring path gives them: ring
+    tables 65 entries wide with start = first·16 (first 0, 1, 62, 185) and
+    lens − start from 1 to 1040 at window 1024; and a G layer's
+    full-history table (max_len 4128: 258 entries) with rows up to 4096
+    keys, whose first splits lie wholly below the window. Allclose with
+    the plain version, finite."""
+    gemma = dict(pool=pool, hq=8, hkv=4, d=256, window=1024, seed=7)
+    if rows == "ring":
+        args, kw = _attn_case(
+            cuda_device, width=65, firsts=(0, 1, 62, 185),
+            lens=[1, 15, 16, 17, 500, 1008, 1023, 1024, 1025, 1039, 1040],
+            **gemma)
+    else:
+        args, kw = _attn_case(
+            cuda_device, width=258,
+            lens=[1, 1000, 1024, 1025, 2047, 3000, 4095, 4096], **gemma)
+    int8 = pool == torch.int8
+    if int8:   # the serving path's bf16 queries
+        args = (args[0].bfloat16(),) + args[1:]
+    kern = attn_ops.KERNEL_INT8 if int8 else attn_ops.KERNEL
+    op = attn_ops.paged_attention_int8 if int8 else attn_ops.paged_attention
+    ref = paged_attention_int8_dequant_ref if int8 else paged_attention_ref
+    before = kern.launches
+    out = op(*args, **kw)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    assert bool(torch.isfinite(out).all())
+    want = ref(*args, **kw)
+    tol = 1.6e-2 if out.dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_ring_serving_on_card_agrees_with_cpu(cuda_device):
+    """Smoke-size gemma3-4b (window 16, float32) on ring pools (block_len
+    4, max_len 64, prompts longer than the window), float and int8 pools:
+    the engine on the card (kernels) and on the CPU (plain versions) give
+    the same greedy tokens up to near-ties."""
+    from repro_torch.models import registry
+    from repro_torch.serve import EngineConfig, LLMEngine
+
+    for quant_on in (False, True):
+        cfg = dataclasses.replace(configs.smoke_config("gemma3-4b"),
+                                  dtype="float32", serve_quant=quant_on)
+        arch = registry.build(cfg)
+        npp = bridge.numpy_params(arch.schema(), seed=0)
+        rng = np.random.default_rng(2)
+        prompts = [rng.integers(0, cfg.vocab, int(rng.integers(17, 41)))
+                   for _ in range(6)]
+        outs = []
+        for device in ("cuda", "cpu"):
+            eng = LLMEngine(arch, bridge.params_from_numpy(npp, device),
+                            EngineConfig(slots=4, max_len=64, admit_window=2,
+                                         block_len=4), device=device)
+            assert eng.backend.ring
+            hs = [eng.add_request(p, max_new_tokens=12) for p in prompts]
+            eng.run_until_drained()
+            outs.append([eng.request(h).output for h in hs])
+        same = sum(a == b for x, y in zip(*outs) for a, b in zip(x, y))
+        assert same >= 0.9 * 72, (quant_on, outs)
 
 
 def test_serving_path_on_card_agrees_with_cpu_plain_versions(cuda_device):

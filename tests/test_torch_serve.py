@@ -242,20 +242,14 @@ def test_unported_settings_raise_by_name(setting, kw):
 
 
 def test_mesh_and_ring_layouts_raise_by_name():
+    """A mesh is refused by name, also beside the ported features. Ring
+    layouts are no longer refused: gemma3's sliding-window layers get
+    ring-block pools (``test_torch_ring_serve.py`` holds them to the
+    reference)."""
     _, _, tarch, tparams = setup_pair("glm4-9b", False)
     # the ported features do not mask the refusal of an unported one
     for kw in (dict(), dict(prefill_chunk_tokens=32, spec_tokens=2,
                             prefix_cache=True)):
         with pytest.raises(NotImplementedError, match="mesh"):
             LLMEngine(tarch, tparams, EngineConfig(**kw), mesh=object(),
-                      device="cpu")
-    # gemma3's sliding-window layers need ring-block pools
-    cfg = dataclasses.replace(tconfigs.smoke_config("gemma3-4b"),
-                              dtype="float32")
-    arch = tregistry.build(cfg)
-    params = bridge.params_from_numpy(bridge.numpy_params(arch.schema(), 0),
-                                      "cpu")
-    for kw in (dict(), dict(prefill_chunk_tokens=16)):
-        with pytest.raises(NotImplementedError, match="ring"):
-            LLMEngine(arch, params, EngineConfig(max_len=64, **kw),
                       device="cpu")
