@@ -27,7 +27,10 @@ non-zero on failure; none is caught):
    ``start`` = first·16 for first in {0, 1, 62, 185} and lens − start from
    1 to 1040, and over a G layer's full-history table with rows up to 4096
    keys (whole splits below the window), each allclose and then timed, and
-   the int8 GEMM bit-exact on gemma3-4b's seven projections at M = 1 and 8
+   the int8 GEMM bit-exact on gemma3-4b's seven projections at M = 1 and 8;
+   paged decode and verify attention at qwen3-moe-30b-a3b's geometry (32
+   query heads on 4 kv heads of 128, a GQA group of 8; 8 rows up to 4096
+   keys) on f32, bf16 and int8 pools, allclose, then timed beside SDPA
    — and the SSD chunked scan
    at mamba2-2.7b's widths (S = 1, 5, 129, 512, 2048, and a G = 2 case of
    40 heads a group) allclose, y bit-equal with and without the state, with
@@ -109,7 +112,21 @@ non-zero on failure; none is caught):
    small input (gemma3-4b-smoke, window 16) the card agrees with the CPU;
    print each run's iteration walls and time to first token, and one
    steady-state int8 decode step's device time with the GEMM's and the
-   attention kernel's shares.
+   attention kernel's shares;
+8. serve full-width qwen3-moe-30b-a3b (random bf16 weights, 48 layers of
+   128 experts, top 8, float weights) through ``LLMEngine(backend=
+   "paged")``: 16 requests x 32 tokens of 64–512-token prompts on int8 and
+   bf16 pools, the shared-prefix workload on int8 pools with the prefix
+   cache and ``spec_tokens`` 0 and 4, and long prompts (2 of 3000–4000
+   tokens) chunked by 512 on int8 pools; check every request finishes
+   with its token count and finite logits, each decode step launches B2
+   (B1 on bf16 pools) once a layer, each verify step B5 once a layer, and
+   nothing else (no int8 GEMM: the family keeps float weights), and on a
+   small input (qwen3-moe-30b-a3b-smoke, float32, capacity 1.25) the card
+   gives the CPU's greedy tokens on both pool types and spec on gives
+   spec off's; print one steady-state int8 decode step's device time with
+   the attention kernel's share and the device's busy share, beside the
+   step's bytes bound (every weight read once).
 
 Every ``torch.profiler`` session keeps host-idle margins inside both ends
 (``profiled``): in a few sessions in a hundred the profiler places the
@@ -687,6 +704,9 @@ def check_verify(torch, cfg, slots, blk, lens, qlen, flush, *, int8):
 # position start = first·16, lens − start from 1 to 1040; and a G layer's
 # full-history table at max_len 4128 (258 entries) with rows up to 4096 keys
 RING_FIRSTS = (0, 1, 62, 185)
+# qwen3-moe-30b-a3b's decode rows for B1/B2/B4/B5 (phase 2): 8 rows, one
+# empty, up to a 4096-key row (32 query heads on 4 kv heads of 128)
+MOE_LENS = (0, 17, 130, 544, 1000, 2047, 3000, 4096)
 RING_RELS = (1, 15, 16, 17, 500, 1008, 1023, 1024, 1025, 1039, 1040)
 FULL_LENS = (1, 1000, 1024, 1025, 2047, 3000, 4095, 4096)
 
@@ -1348,7 +1368,7 @@ def serve(torch, arch, params, prompts, slots, max_new, max_len=None,
     if k:
         logits, _ = arch.paged_verify_step(
             params, eng.cache, torch.zeros((slots, k + 1), dtype=torch.int32,
-                                           device="cuda"),
+                                           device=eng.backend.last_tok.device),
             eng.backend._tables(), qparams=eng.backend.qparams)
         want = (slots, k + 1, arch.cfg.vocab)
     else:
@@ -1387,8 +1407,8 @@ def decode_steps(torch, arch, params, slots, reps=25, prompt_len=200,
     """Steady-state decode iterations of ``LLMEngine`` (every slot running
     a ``prompt_len``-token prompt): the host-clock p50 of one step, and a
     step's device time from ``torch.profiler`` — all kernels, the int8
-    GEMM's and the paged-attention kernels' shares, and the number of
-    kernels."""
+    GEMM's and the paged-attention kernels' shares, the eight longest
+    kernels by name (ms a step), and the number of kernels."""
     import numpy as np
 
     from repro_torch.serve import EngineConfig, LLMEngine
@@ -1414,7 +1434,9 @@ def decode_steps(torch, arch, params, slots, reps=25, prompt_len=200,
             eng.step()
     kernels = [e for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")]
+    top = sorted(kernels, key=dev_us, reverse=True)[:8]
     return dict(step_ms_p50=sorted(walls)[reps // 2],
+                top={e.key[:60]: round(dev_us(e) / n / 1e3, 3) for e in top},
                 device_ms=sum(dev_us(e) for e in kernels) / n / 1e3,
                 gemm_device_ms=sum(dev_us(e) for e in kernels
                                    if "int8_gemm" in e.key) / n / 1e3,
@@ -1944,6 +1966,182 @@ def serve_ring(torch, cfg, archs, params, prompts, slots, max_new, max_len,
     return runs
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the moe family (qwen3-moe-30b-a3b) on the paged backend
+# ---------------------------------------------------------------------------
+
+
+def small_input_moe_agreement(torch, quant):
+    """Smoke-size qwen3-moe-30b-a3b (8 experts top 2, float32, capacity
+    1.25) through the kernels on the card and the plain versions on the
+    CPU: equal greedy tokens; and on the card, ``spec_tokens=4`` with the
+    prefix cache gives ``spec_tokens=0``'s greedy tokens. Returns (same
+    card vs CPU, same spec on vs off, total)."""
+    from repro_torch import bridge, configs
+    from repro_torch.models import registry
+    from repro_torch.serve import EngineConfig, LLMEngine
+
+    import numpy as np
+
+    cfg = dataclasses.replace(configs.smoke_config("qwen3-moe-30b-a3b"),
+                              dtype="float32", serve_quant=quant)
+    arch = registry.build(cfg)
+    npp = bridge.numpy_params(arch.schema(), seed=SEED)
+    rng = np.random.default_rng(3)
+    shared = rng.integers(0, cfg.vocab, 19)
+    prompts = [np.concatenate([shared, np.tile(rng.integers(0, cfg.vocab, 3),
+                                               8)[:int(rng.integers(4, 20))]])
+               for _ in range(6)]
+    outs = {}
+    for device, k in (("cuda", 0), ("cpu", 0), ("cuda", 4)):
+        eng = LLMEngine(arch, bridge.params_from_numpy(npp, device),
+                        EngineConfig(slots=4, max_len=64, admit_window=2,
+                                     block_len=8, spec_tokens=k,
+                                     prefix_cache=True), device=device)
+        hs = [eng.add_request(p, max_new_tokens=12) for p in prompts]
+        eng.run_until_drained()
+        outs[device, k] = [eng.request(h).output for h in hs]
+
+    def agree(x, y):
+        return sum(a == b for u, v in zip(x, y) for a, b in zip(u, v))
+
+    total = sum(len(x) for x in outs["cpu", 0])
+    same_cpu = agree(outs["cuda", 0], outs["cpu", 0])
+    same_spec = agree(outs["cuda", 4], outs["cuda", 0])
+    if same_cpu != total or same_spec != total:
+        raise AssertionError(
+            f"qwen3-moe-30b-a3b-smoke ({'int8' if quant else 'float'} "
+            f"pools): card vs CPU {same_cpu}/{total}, spec on vs off "
+            f"{same_spec}/{total} greedy tokens agree")
+    return same_cpu, same_spec, total
+
+
+def moe_step_bound(params, slots):
+    """Bytes bound of one moe decode step (ms): every weight but the
+    embedding table read once (the expert products run over every
+    expert's buffer), ``slots`` embedding rows; at the card's memory
+    rate."""
+    from repro_torch.models.schema import leaves
+
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    emb = params["embed"]
+    nbytes -= emb.numel() * emb.element_size()
+    nbytes += slots * emb.shape[1] * emb.element_size()
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def serve_moe(torch, cfg, archs, params, slots, max_new, spec_k):
+    """``cfg`` served on the paged backend: random prompts on int8 and bf16
+    pools, the shared-prefix workload on int8 pools with the prefix cache
+    and spec off and on, and long prompts chunked by 512 on int8 pools,
+    each through ``serve`` (launch counts set to 0 just before and read
+    just after). A decode step launches the attention kernel once a layer
+    (B2 on int8 pools, B1 on bf16), a verify step B5 once a layer, and the
+    family never launches the int8 GEMM; returns the runs by label."""
+    n = 16
+    plain = random_prompts(cfg.vocab, n, seed=14)
+    shared = shared_prefix_prompts(cfg.vocab, n, seed=15)
+    long = long_prompts(cfg.vocab, seed=16)
+    runs = {}
+    for label, pool, prompts, kw in (
+            ("int8", "int8", plain, {}),
+            ("bf16", "bf16", plain, {}),
+            ("int8 prefix", "int8", shared, dict(prefix_cache=True)),
+            ("int8 spec+prefix", "int8", shared,
+             dict(prefix_cache=True, spec_tokens=spec_k)),
+            ("int8 long chunked", "int8", long,
+             dict(max_len=4096 + max_new, prefill_chunk_tokens=512))):
+        r = serve(torch, archs[pool], params, prompts, slots, max_new, **kw)
+        runs[label] = r
+        print(f"serve {cfg.name} {label}: {len(prompts)} requests x "
+              f"{max_new} tokens ({r['prompt_tokens']} prompt tokens, "
+              f"longest {max(len(p) for p in prompts)}), "
+              f"tokens/s={r['tokens_per_s']:.2f} iter_ms(p50)="
+              f"{r['decode_ms_per_iter_p50']:.2f} iter_ms(p99)="
+              f"{r['iter_ms_p99']:.2f} iter_ms(max)={r['iter_ms_max']:.2f} "
+              f"ttft_avg_s={r['ttft_avg_s']:.4f} "
+              f"iterations={r['iterations']:.0f} "
+              f"decode_dispatches={r['decode_dispatches']:.0f} "
+              f"preemptions={r['preemptions']} "
+              f"prefill_chunks_dispatched={r['chunks']:.0f} "
+              f"spec_accept_rate={r['spec_accept_rate']:.4f} "
+              f"(drafted {r['spec_drafted']:.0f}, accepted "
+              f"{r['spec_accepted']:.0f}) "
+              f"prefix_cache_hit_rate={r['prefix_cache_hit_rate']:.4f} "
+              f"pool_bytes={r['pool_bytes']} "
+              f"kernels={json.dumps(r['launches'])}", flush=True)
+        spec = "spec" in label
+        steps = cfg.n_layers * r["decode_dispatches"]
+        attn = ("paged_attention_verify_int8" if spec
+                else "paged_attention_int8" if pool == "int8"
+                else "paged_attention")
+        want = {k: 0 for k in r["launches"]}
+        want[attn] = steps
+        for k, v in want.items():
+            if r["launches"][k] != v:
+                raise AssertionError(
+                    f"{cfg.name} {label}: {k} launched {r['launches'][k]} "
+                    f"times, want {v} for {r['decode_dispatches']:.0f} "
+                    f"{'verify' if spec else 'decode'} steps")
+    for label in ("int8 prefix", "int8 spec+prefix"):
+        if runs[label]["prefix_cache_hit_rate"] <= 0:
+            raise AssertionError(f"{cfg.name} {label}: no prefix-cache hit")
+    if runs["int8 spec+prefix"]["spec_drafted"] <= 0:
+        raise AssertionError(f"{cfg.name}: the spec run drafted nothing")
+    if runs["int8 long chunked"]["chunks"] < 12:
+        raise AssertionError(f"{cfg.name}: the long run dispatched "
+                             f"{runs['int8 long chunked']['chunks']:.0f} "
+                             f"chunks")
+    return runs
+
+
+def moe_phase(torch, qcfg, slots, max_new, spec_k):
+    """Phase 8: the small-input checks, then full-width ``qcfg`` drawn on
+    the card, served by ``serve_moe`` and its decode step profiled; frees
+    the weights and returns the attention kernels' launches on the main
+    path."""
+    from repro_torch.models import registry, schema
+
+    for pool, quant in (("float", False), ("int8", True)):
+        same_c, same_s, total = small_input_moe_agreement(torch, quant)
+        print(f"small input qwen3-moe-30b-a3b-smoke ({pool} pools, capacity "
+              f"1.25): card vs CPU greedy tokens {same_c}/{total}; on the "
+              f"card spec on vs off {same_s}/{total}", flush=True)
+    qarch_f = registry.build(dataclasses.replace(qcfg, serve_quant=False))
+    print(f"device memory before the draw: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated", flush=True)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    qparams = schema.init_params(qarch_f.schema(), gen, "cuda",
+                                 dtype=qcfg.compute_dtype)
+    torch.cuda.synchronize()
+    print(f"qwen3-moe-30b-a3b params: "
+          f"{schema.param_count(qarch_f.schema()) / 1e9:.3f} B "
+          f"({time.perf_counter() - t0:.1f} s to draw on the card, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated)",
+          flush=True)
+    qarchs = {"bf16": qarch_f, "int8": registry.build(qcfg)}
+    qruns = serve_moe(torch, qcfg, qarchs, qparams, slots, max_new, spec_k)
+    st = decode_steps(torch, qarchs["int8"], qparams, slots)
+    b_ms, b_bytes = moe_step_bound(qparams, slots)
+    print(f"qwen3-moe-30b-a3b decode steps (int8 pools, {slots} slots "
+          f"running 200-token prompts): step p50 {st['step_ms_p50']:.2f} ms "
+          f"(host clock), device {st['device_ms']:.3f} ms a step of which "
+          f"paged_attention_int8 {st['attn_device_ms']:.3f} ms and "
+          f"int8_gemm {st['gemm_device_ms']:.3f} ms, {st['kernels']:.0f} "
+          f"kernels a step (torch.profiler); device busy share "
+          f"{st['device_ms'] / st['step_ms_p50']:.4f}; bytes bound "
+          f"{b_ms:.3f} ms ({b_bytes / 1e9:.2f} GB of weights at 3.35 TB/s); "
+          f"longest kernels (ms a step): {json.dumps(st['top'])}",
+          flush=True)
+    counts = {name: qruns[label]["launches"][name] for name, label in (
+        ("paged_attention", "bf16"), ("paged_attention_int8", "int8"),
+        ("paged_attention_verify_int8", "int8 spec+prefix"))}
+    del qparams, qruns
+    torch.cuda.empty_cache()
+    return counts
+
+
 def pool_row_bytes(torch, cfg, blk, int8):
     """Bytes of one pool row of one layer: K and V blocks, and the two
     per-block scales on int8 pools."""
@@ -2035,6 +2233,12 @@ def main() -> None:
     g_attn = [check_ring_attention(torch, gcfg, blk, g_max_len, flush,
                                    int8=i8) for i8 in (False, True)]
     g_gemm = check_int8_gemm_shapes(torch, gcfg, (1, slots), read_flush)
+    qcfg = configs.get_config("qwen3-moe-30b-a3b")
+    q_attn = [check(torch, qcfg, slots, blk, MOE_LENS, *extra, flush,
+                    int8=i8)
+              for check, extra in ((check_attention, ()),
+                                   (check_verify, (spec_k + 1,)))
+              for i8 in (False, True)]
     del scratch
     for e in entries:
         print_entry(e)
@@ -2136,6 +2340,17 @@ def main() -> None:
           f"M={g_gemm['m']}: kernel_ms={g_gemm['ms']:.4f} device_ms="
           f"{opt_ms(g_gemm['device_ms'])} bound_ms={g_gemm['bound_ms']:.4f} "
           f"({g_gemm['bound_by']})", flush=True)
+
+    for e in q_attn:
+        print(f"kernel {e['name']} at qwen3-moe-30b-a3b's geometry (a GQA "
+              f"group of {qcfg.n_heads // qcfg.n_kv_heads}; {e['shape']}): "
+              f"{e['cases_checked']} cases allclose, max |err| "
+              f"{e['max_abs_err']}; kernel_ms={e['ms']:.4f} device_ms="
+              f"{opt_ms(e['device_ms'])} plain_ms={e['plain_ms']:.4f} "
+              f"library_ms={e['library_ms']:.4f} library_device_ms="
+              f"{opt_ms(e['library_device_ms'])} bound_ms="
+              f"{e['bound_ms']:.5f} ({e['bound_by']}) grid "
+              f"{tuple(e['grid'])}", flush=True)
 
     # -- phase 3: full-width glm4-9b through LLMEngine ----------------------
     phase(3, "glm4-9b on the paged backend")
@@ -2439,6 +2654,11 @@ def main() -> None:
         main_counts[name] += gruns[label]["launches"][name]
     del gparams, gruns
     torch.cuda.empty_cache()
+
+    # -- phase 8: full-width qwen3-moe-30b-a3b on the paged backend --------
+    phase(8, "qwen3-moe-30b-a3b on the paged backend")
+    for name, n in moe_phase(torch, qcfg, slots, max_new, spec_k).items():
+        main_counts[name] += n
 
     for e in entries:
         e["launches"] = main_counts[e["name"]]

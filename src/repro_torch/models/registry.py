@@ -1,10 +1,10 @@
 """Architecture registry (port of ``repro.models.registry``).
 
 Ported families: the dense transformer (which also serves the ``vlm-dense``
-configs, frontend stubbed, embeddings in) on its paged serving path, and
-the Mamba-2 ``ssm`` and Griffin ``hybrid`` families on the dense-arena
-entry points (``forward``, ``prefill``, ``decode_step``, ``init_cache``).
-Other families raise
+configs, frontend stubbed, embeddings in) and the ``moe`` family on their
+paged serving paths, and the Mamba-2 ``ssm`` and Griffin ``hybrid``
+families on the dense-arena entry points (``forward``, ``prefill``,
+``decode_step``, ``init_cache``). Other families raise
 ``NotImplementedError`` naming the family. Entry points a family module
 does not define stay ``None``, as in the reference.
 """
@@ -20,6 +20,7 @@ from repro_torch.models.config import ModelConfig
 _FAMILY_MODULES = {
     "dense": "repro_torch.models.transformer",
     "vlm-dense": "repro_torch.models.transformer",  # frontend stubbed
+    "moe": "repro_torch.models.moe",
     "ssm": "repro_torch.models.ssm",
     "hybrid": "repro_torch.models.griffin",
 }

@@ -135,6 +135,16 @@ def _prefill_layer(xc, p, kind: str, cfg: ModelConfig, positions, *,
     gathered from the pool. The suffix queries attend [prefix ++ suffix]
     with ``q_offset`` placing row 0 right after the prefix, so the causal
     and window masks bind by absolute position."""
+    xc, k, v = _prefill_attention(xc, p, kind, cfg, positions,
+                                  kv_prefix=kv_prefix)
+    xc = xc + _mlp(nn.rms_norm(xc, p["ln2"]), p, cfg)
+    return xc, k, v
+
+
+def _prefill_attention(xc, p, kind: str, cfg: ModelConfig, positions, *,
+                       kv_prefix=None):
+    """The attention half of a prefill layer, shared with the moe family:
+    returns (x plus the attention output, this layer's k, v)."""
     h = nn.rms_norm(xc, p["ln1"])
     q, k, v = _project_qkv(h, p, cfg, positions)
     ka, va, q_off = k, v, 0
@@ -149,9 +159,7 @@ def _prefill_layer(xc, p, kind: str, cfg: ModelConfig, positions, *,
         chunk_q=min(cfg.attn_chunk_q, xc.shape[1]),
         q_offset=q_off,
     )
-    xc = xc + nn.dense(_merge_heads(o), p["wo"])
-    xc = xc + _mlp(nn.rms_norm(xc, p["ln2"]), p, cfg)
-    return xc, k, v
+    return xc + nn.dense(_merge_heads(o), p["wo"]), k, v
 
 
 # ---------------------------------------------------------------------------
@@ -274,26 +282,34 @@ def _qlin(qp, name, y):
     return (out8.float() * attn.ACT_SCALE).to(y.dtype)
 
 
-def _paged_decode_layer(x, p, c, kind, cfg: ModelConfig, pos, table, *,
-                        qparams=None):
-    """One-token decode through one layer against the paged pool."""
+def _float_lin(p):
+    """The float projections of a layer, as ``_qlin`` is called."""
+    return lambda name, y: nn.dense(y, p[name])
+
+
+def _check_int8_pools(qparams, c) -> None:
+    """W8A8 weights need int8 pools."""
+    if qparams is not None and c["k"].dtype != torch.int8:
+        raise ValueError(
+            "int8 serving over float block pools is not supported: build "
+            "the paged cache with quantized=True so K/V live in int8 blocks")
+
+
+def _paged_decode_attention(x, p, c, kind, cfg: ModelConfig, pos, table,
+                            lin):
+    """The attention half of a one-token paged decode layer, shared with the
+    moe family: project q/k/v with ``lin``, write k/v through the block
+    table (requantized on int8 pools), attend (B1/B2); returns x plus the
+    attention output."""
     from repro_torch.kernels.paged_attention.ops import (
         paged_attention, paged_attention_int8,
     )
     from repro_torch.models.cache import quantize_kv
 
-    int8_w = qparams is not None
-    int8_kv = c["k"].dtype == torch.int8
-    if int8_w and not int8_kv:
-        raise ValueError(
-            "int8 serving over float block pools is not supported: build "
-            "the paged cache with quantized=True so K/V live in int8 blocks")
     h = nn.rms_norm(x, p["ln1"])
     b = x.shape[0]
     hd = cfg.hd
     block_len = c["k"].shape[2]  # [num_blocks, Hkv, block_len, hd]
-    lin = functools.partial(_qlin, qparams) if int8_w else (
-        lambda name, y: nn.dense(y, p[name]))
     q = lin("wq", h).reshape(b, 1, cfg.n_heads, hd).transpose(1, 2)
     k = lin("wk", h).reshape(b, 1, cfg.n_kv_heads, hd).transpose(1, 2)
     v = lin("wv", h).reshape(b, 1, cfg.n_kv_heads, hd).transpose(1, 2)
@@ -303,7 +319,7 @@ def _paged_decode_layer(x, p, c, kind, cfg: ModelConfig, pos, table, *,
     window = cfg.local_window if kind == "L" else None
     tbl, start = _resolve_paged_table(table, kind)
     lens = pos + 1
-    if int8_kv:
+    if c["k"].dtype == torch.int8:
         _paged_cache_write(c, quantize_kv(k, attn.KV_SCALE),
                            quantize_kv(v, attn.KV_SCALE), pos, tbl,
                            block_len, start=start)
@@ -314,7 +330,16 @@ def _paged_decode_layer(x, p, c, kind, cfg: ModelConfig, pos, table, *,
         _paged_cache_write(c, k, v, pos, tbl, block_len, start=start)
         o = paged_attention(q.contiguous(), c["k"], c["v"], tbl, lens,
                             window=window, start=start)
-    x = x + lin("wo", _merge_heads(o))
+    return x + lin("wo", _merge_heads(o))
+
+
+def _paged_decode_layer(x, p, c, kind, cfg: ModelConfig, pos, table, *,
+                        qparams=None):
+    """One-token decode through one layer against the paged pool."""
+    _check_int8_pools(qparams, c)
+    lin = (functools.partial(_qlin, qparams) if qparams is not None
+           else _float_lin(p))
+    x = _paged_decode_attention(x, p, c, kind, cfg, pos, table, lin)
     h = nn.rms_norm(x, p["ln2"])
     act = nn.ACTIVATIONS[cfg.act]
     x = x + lin("wd", act(lin("wg", h), lin("wu", h)))
@@ -333,6 +358,14 @@ def paged_decode_step(params, cache, tokens, cfg: ModelConfig, table, *,
     from absolute position ``start`` (``_resolve_paged_table``). Returns
     ``(logits [slots, V], cache)`` with ``cache["len"]`` advanced by one.
     """
+    return _paged_decode_impl(params, cache, tokens, cfg, table,
+                              layer_fn=_paged_decode_layer, qparams=qparams)
+
+
+def _paged_decode_impl(params, cache, tokens, cfg: ModelConfig, table, *,
+                       layer_fn, qparams=None):
+    """Shared paged decode-step scaffold (layer loop over ``layer_fn``,
+    logits, position advance)."""
     x = nn.embed(tokens[:, None], params["embed"], cfg.compute_dtype)
     pos = cache["len"].to(torch.int32).expand(x.shape[0])
     if isinstance(table, dict):
@@ -341,7 +374,7 @@ def paged_decode_step(params, cache, tokens, cfg: ModelConfig, table, *,
         table = table.to(torch.int32)
     for kind, where, g in _layers(cfg):
         qp = None if qparams is None else _entry(qparams, where, g)
-        x = _paged_decode_layer(
+        x = layer_fn(
             x, _entry(params, where, g), _entry(cache, where, g), kind, cfg,
             pos, table, qparams=qp)
     x = nn.rms_norm(x, params["final_norm"])
@@ -376,30 +409,21 @@ def _paged_verify_write(c, k_new, v_new, pos, table, block_len: int):
     return c
 
 
-def _paged_verify_layer(x, p, c, kind, cfg: ModelConfig, pos, table, *,
-                        qparams=None):
-    """Small-q (speculative verify) pass through one layer: ``x`` carries
-    Q = spec_tokens + 1 positions per row — the last committed token plus
-    the drafts — all written and scored in one pool sweep. Query row 0
-    repeats ``_paged_decode_layer``'s math (same write, and the verify
-    attention's row 0 is exactly the decode mask)."""
+def _paged_verify_attention(x, p, c, kind, cfg: ModelConfig, pos, table,
+                            lin):
+    """The attention half of a small-q verify layer, shared with the moe
+    family: Q consecutive positions a row projected with ``lin``, written
+    through the block table and scored (B4/B5); returns x plus the
+    attention output."""
     from repro_torch.kernels.paged_attention.ops import (
         paged_attention_verify, paged_attention_verify_int8,
     )
     from repro_torch.models.cache import quantize_kv
 
-    int8_w = qparams is not None
-    int8_kv = c["k"].dtype == torch.int8
-    if int8_w and not int8_kv:
-        raise ValueError(
-            "int8 serving over float block pools is not supported: build "
-            "the paged cache with quantized=True so K/V live in int8 blocks")
     h = nn.rms_norm(x, p["ln1"])
     b, qlen = x.shape[:2]
     hd = cfg.hd
     block_len = c["k"].shape[2]
-    lin = functools.partial(_qlin, qparams) if int8_w else (
-        lambda name, y: nn.dense(y, p[name]))
     q = lin("wq", h).reshape(b, qlen, cfg.n_heads, hd).transpose(1, 2)
     k = lin("wk", h).reshape(b, qlen, cfg.n_kv_heads, hd).transpose(1, 2)
     v = lin("wv", h).reshape(b, qlen, cfg.n_kv_heads, hd).transpose(1, 2)
@@ -411,7 +435,7 @@ def _paged_verify_layer(x, p, c, kind, cfg: ModelConfig, pos, table, *,
     window = cfg.local_window if kind == "L" else None
     tbl, start = _resolve_paged_table(table, kind)
     lens = pos + 1
-    if int8_kv:
+    if c["k"].dtype == torch.int8:
         _paged_verify_write(c, quantize_kv(k, attn.KV_SCALE),
                             quantize_kv(v, attn.KV_SCALE), pos, tbl,
                             block_len)
@@ -422,7 +446,20 @@ def _paged_verify_layer(x, p, c, kind, cfg: ModelConfig, pos, table, *,
         _paged_verify_write(c, k, v, pos, tbl, block_len)
         o = paged_attention_verify(q.contiguous(), c["k"], c["v"], tbl, lens,
                                    window=window, start=start)
-    x = x + lin("wo", _merge_heads(o))
+    return x + lin("wo", _merge_heads(o))
+
+
+def _paged_verify_layer(x, p, c, kind, cfg: ModelConfig, pos, table, *,
+                        qparams=None):
+    """Small-q (speculative verify) pass through one layer: ``x`` carries
+    Q = spec_tokens + 1 positions per row — the last committed token plus
+    the drafts — all written and scored in one pool sweep. Query row 0
+    repeats ``_paged_decode_layer``'s math (same write, and the verify
+    attention's row 0 is exactly the decode mask)."""
+    _check_int8_pools(qparams, c)
+    lin = (functools.partial(_qlin, qparams) if qparams is not None
+           else _float_lin(p))
+    x = _paged_verify_attention(x, p, c, kind, cfg, pos, table, lin)
     h = nn.rms_norm(x, p["ln2"])
     act = nn.ACTIVATIONS[cfg.act]
     x = x + lin("wd", act(lin("wg", h), lin("wu", h)))
@@ -447,12 +484,20 @@ def paged_verify_step(params, cache, tokens, cfg: ModelConfig, table, *,
 
     Returns ``(logits [slots, Q, V], cache)``.
     """
+    return _paged_verify_impl(params, cache, tokens, cfg, table,
+                              layer_fn=_paged_verify_layer, qparams=qparams)
+
+
+def _paged_verify_impl(params, cache, tokens, cfg: ModelConfig, table, *,
+                       layer_fn, qparams=None):
+    """Shared verify-step scaffold (layer loop over ``layer_fn``, logits;
+    ``cache["len"]`` untouched)."""
     x = nn.embed(tokens, params["embed"], cfg.compute_dtype)  # [slots, Q, D]
     pos = cache["len"].to(torch.int32).expand(x.shape[0])
     table = table.to(torch.int32)
     for kind, where, g in _layers(cfg):
         qp = None if qparams is None else _entry(qparams, where, g)
-        x = _paged_verify_layer(
+        x = layer_fn(
             x, _entry(params, where, g), _entry(cache, where, g), kind, cfg,
             pos, table, qparams=qp)
     x = nn.rms_norm(x, params["final_norm"])

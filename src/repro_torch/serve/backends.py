@@ -25,9 +25,9 @@ selected by ``EngineConfig.backend``:
 
 Which families serve on which backend is ``registry.Arch.serve_backends``:
 in the port the ``ssm`` and ``hybrid`` families serve on ``slot``/``arena``
-and the dense family on ``paged``. Not ported yet (refused with
-``NotImplementedError``): the dense family on ``slot``/``arena``, and
-mesh sharding.
+and the dense and ``moe`` families on ``paged``. Not ported yet (refused
+with ``NotImplementedError``): the dense and moe families on
+``slot``/``arena``, and mesh sharding.
 """
 
 from __future__ import annotations

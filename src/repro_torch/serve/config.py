@@ -5,10 +5,11 @@
 and validation, with two differences:
 
 * ``backend`` defaults to ``"paged"``, where the reference's default is
-  ``"arena"``: the dense family, which most configs belong to, serves only
-  on the paged backend in the port so far (its non-paged entry points are
-  not ported). The ``ssm`` and ``hybrid`` families serve on ``"arena"``
-  and ``"slot"`` and have to ask for one of them.
+  ``"arena"``: the dense family, which most configs belong to, and the
+  ``moe`` family serve only on the paged backend in the port so far (their
+  non-paged entry points are not ported). The ``ssm`` and ``hybrid``
+  families serve on ``"arena"`` and ``"slot"`` and have to ask for one of
+  them.
 * there is no ``attn_backend`` — the port has no per-op backend ladder, the
   device decides which version of a kernel runs.
 

@@ -27,7 +27,10 @@ ITA integer softmax with ``int_softmax_ref``; ``int8_attention`` on the card
 equals it on the CPU bit for bit. Paged decode attention is also held at
 gemma3-4b's geometry on ring tables (``start`` in the thousands, window
 1024) and its full-history rows, and the ring-pool engine on
-``gemma3-4b-smoke`` agrees with the CPU's.
+``gemma3-4b-smoke`` agrees with the CPU's. Paged decode and verify
+attention are held at qwen3-moe-30b-a3b's geometry (a GQA group of 8, rows
+up to 4096 keys), and the moe family's paged steps and engine on
+``qwen3-moe-30b-a3b-smoke`` agree with the CPU's.
 """
 
 import dataclasses
@@ -429,6 +432,108 @@ def test_paged_attention_gemma3_ring_and_full_rows(cuda_device, pool, rows):
     want = ref(*args, **kw)
     tol = 1.6e-2 if out.dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+MOE_LENS = [0, 17, 130, 544, 1000, 2047, 3000, 4096]
+
+
+@pytest.mark.parametrize("pool", [torch.float32, torch.bfloat16, torch.int8],
+                         ids=["f32", "bf16", "int8"])
+@pytest.mark.parametrize("kind", ["decode", "verify"])
+def test_paged_kernels_at_qwen3_moe_geometry(cuda_device, pool, kind):
+    """B1/B2 (decode) and B4/B5 (verify, Q = 5) at qwen3-moe-30b-a3b's
+    geometry: 32 query heads on 4 kv heads of 128 (a GQA group of 8), 8
+    rows up to 4096 keys. Allclose with the plain version; the verify row
+    0 bit-equal to the decode."""
+    int8 = pool == torch.int8
+    verify = kind == "verify"
+    lens = [max(x, 1) for x in MOE_LENS] if verify else MOE_LENS
+    args, kw = _attn_case(cuda_device, pool=pool, hq=32, hkv=4, d=128,
+                          lens=lens, qlen=5 if verify else 1, seed=9)
+    if int8:   # the serving path's bf16 queries
+        args = (args[0].bfloat16(),) + args[1:]
+    if verify:
+        kern = attn_ops.KERNEL_VERIFY_INT8 if int8 else attn_ops.KERNEL_VERIFY
+        op = (attn_ops.paged_attention_verify_int8 if int8
+              else attn_ops.paged_attention_verify)
+        ref = (paged_attention_verify_int8_dequant_ref if int8
+               else paged_attention_verify_ref)
+    else:
+        kern = attn_ops.KERNEL_INT8 if int8 else attn_ops.KERNEL
+        op = attn_ops.paged_attention_int8 if int8 else attn_ops.paged_attention
+        ref = paged_attention_int8_dequant_ref if int8 else paged_attention_ref
+    before = kern.launches
+    out = op(*args, **kw)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = ref(*args, **kw)
+    tol = 1.6e-2 if out.dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    if verify:
+        dec = (attn_ops.paged_attention_int8 if int8
+               else attn_ops.paged_attention)
+        q1 = args[0][:, :, :1].contiguous()
+        assert torch.equal(out[:, :, :1], dec(q1, *args[1:], **kw))
+    else:
+        assert torch.all(out[0] == 0)
+
+
+@pytest.mark.parametrize("quant_on", [False, True], ids=["float", "int8"])
+def test_moe_paged_steps_on_card_agree_with_cpu(cuda_device, quant_on):
+    """Smoke-size qwen3-moe-30b-a3b (float32, capacity 1.25): a 52-token
+    prefill (which drops routing slots) and three decode steps on the card
+    (kernels B1/B2, one launch a layer a step) and on the CPU (plain
+    versions), logits allclose; then the engine's greedy tokens on the
+    card equal the CPU's, and spec on equals spec off on the card."""
+    from repro_torch.models import registry
+    from repro_torch.models.cache import PagedLayout
+    from repro_torch.serve import EngineConfig, LLMEngine
+
+    cfg = dataclasses.replace(configs.smoke_config("qwen3-moe-30b-a3b"),
+                              dtype="float32", serve_quant=quant_on)
+    arch = registry.build(cfg)
+    npp = bridge.numpy_params(arch.schema(), seed=0)
+    rng = np.random.default_rng(5)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 52)))
+    ids = torch.arange(3, 10, dtype=torch.int32)
+    table = torch.zeros((1, 8), dtype=torch.int32)
+    table[0, :7] = ids
+    kern = attn_ops.KERNEL_INT8 if quant_on else attn_ops.KERNEL
+    logits = {}
+    for device in ("cuda", "cpu"):
+        params = bridge.params_from_numpy(npp, device)
+        cache = arch.init_paged_cache(1, PagedLayout(8, 12, 64),
+                                      device=device)
+        out, cache = arch.paged_prefill(params, prompt.to(device), cache, 0,
+                                        ids.to(device))
+        steps = [out]
+        tok = out.argmax(-1).to(torch.int32)
+        for _ in range(3):
+            before = kern.launches
+            out, cache = arch.paged_decode_step(params, cache, tok,
+                                                table.to(device))
+            if device == "cuda":
+                torch.cuda.synchronize()
+                assert kern.launches == before + cfg.n_layers
+            steps.append(out)
+            tok = out.argmax(-1).to(torch.int32)
+        logits[device] = torch.stack([x.cpu() for x in steps])
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=1e-4,
+                               rtol=1e-4)
+
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(17, 41)))
+               for _ in range(6)]
+    outs = {}
+    for device, k in (("cuda", 0), ("cpu", 0), ("cuda", 3)):
+        eng = LLMEngine(arch, bridge.params_from_numpy(npp, device),
+                        EngineConfig(slots=4, max_len=64, admit_window=2,
+                                     block_len=8, spec_tokens=k),
+                        device=device)
+        hs = [eng.add_request(p, max_new_tokens=12) for p in prompts]
+        eng.run_until_drained()
+        outs[device, k] = [eng.request(h).output for h in hs]
+    assert outs["cuda", 0] == outs["cpu", 0]
+    assert outs["cuda", 3] == outs["cuda", 0]
 
 
 def test_ring_serving_on_card_agrees_with_cpu(cuda_device):

@@ -37,7 +37,8 @@ def test_port_imports_neither_jax_nor_the_reference_package():
             "repro_torch.kernels.paged_attention.ops",
             "repro_torch.kernels.paged_attention.ref",
             "repro_torch.models.cache", "repro_torch.models.transformer",
-            "repro_torch.models.ssm", "repro_torch.kernels.ssd_scan.ops",
+            "repro_torch.models.ssm", "repro_torch.models.moe",
+            "repro_torch.kernels.ssd_scan.ops",
             "repro_torch.kernels.ssd_scan.ref", "repro_torch.bridge",
             "repro_torch.models.griffin", "repro_torch.models.attention",
             "repro_torch.kernels.rglru.ops", "repro_torch.kernels.rglru.ref",

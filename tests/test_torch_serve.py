@@ -39,12 +39,13 @@ torch.set_num_threads(1)
 CONFIGS = ["glm4-9b", "phi3-mini-3.8b"]
 
 
-def setup_pair(name, quant):
-    """(JAX arch, JAX params, port arch, port params) on the same weights."""
+def setup_pair(name, quant, **overrides):
+    """(JAX arch, JAX params, port arch, port params) on the same weights;
+    ``overrides`` replace config fields on both sides."""
     jc = dataclasses.replace(jconfigs.smoke_config(name), dtype="float32",
-                             serve_quant=quant)
+                             serve_quant=quant, **overrides)
     tc = dataclasses.replace(tconfigs.smoke_config(name), dtype="float32",
-                             serve_quant=quant)
+                             serve_quant=quant, **overrides)
     tarch = tregistry.build(tc)
     npp = bridge.numpy_params(tarch.schema(), seed=0)
     return (jregistry.build(jc), jax.tree.map(jnp.asarray, npp), tarch,

@@ -291,12 +291,13 @@ def assert_frontier_blocks(eng):
 ENGINE_KW = dict(slots=4, max_len=64, admit_window=2, block_len=BLK)
 
 
-def spec_identity_cell(name, k, quant, prefix):
+def spec_identity_cell(name, k, quant, prefix, **overrides):
     """One cell of the identity matrix: the port and the synchronised JAX
     engine serve the same shared-prefix workload with ``spec_tokens=k``;
     greedy streams, preemptions and the spec / prefix counters agree, and
-    the port's invariants hold after every step."""
-    jarch, jparams, tarch, tparams = setup_pair(name, quant)
+    the port's invariants hold after every step. ``overrides`` replace
+    config fields on both sides."""
+    jarch, jparams, tarch, tparams = setup_pair(name, quant, **overrides)
     kw = dict(ENGINE_KW, spec_tokens=k, prefix_cache=prefix)
     je = sync_reference_decode(JEngine(jarch, jparams, JEngineConfig(
         backend="paged", attn_backend="interpret" if quant else "xla",
