@@ -70,7 +70,19 @@ non-zero on failure; none is caught):
    prefix cache on int8 pools, each with its iteration walls (p50, p99,
    max), jitter, time to first token and chunks dispatched; then time
    steady-state decode steps on both pool types (host clock, and device
-   time a step with the int8 GEMM's share from ``torch.profiler``);
+   time a step with the int8 GEMM's share from ``torch.profiler``); then
+   the float-cache arena (``serve_quant=False``, plain PyTorch, no
+   hand-written kernel): on small inputs (glm4-9b-smoke, gemma3-4b-smoke
+   with its 16-row rings, float32) the arena's greedy tokens on the card
+   against the CPU's, the slot backend's equal to the arena's and the
+   paged backend's (float32 pools) against the arena's, with no kernel
+   launched by the arena and slot runs; at full width 16 requests x 32
+   tokens of 64–512-token prompts through ``LLMEngine(backend="arena")``
+   with bf16 caches (8 slots, ``max_len`` 1024, length-bucketed
+   admission): token counts, finite logits, no kernel launched, the
+   admissions by bucket, tokens/s, the iteration p50 and one profiled
+   steady decode step beside its bytes bound and the paged bf16 step;
+   and 2 requests x 8 tokens through ``slot`` equal to a 2-slot arena's;
 4. serve full-width mamba2-2.7b (random bf16 weights, 64 layers) through
    ``LLMEngine(backend="arena")``, its launch counts set to 0 just before
    and read just after; check every request finishes with its token count,
@@ -126,7 +138,11 @@ non-zero on failure; none is caught):
    gives the CPU's greedy tokens on both pool types and spec on gives
    spec off's; print one steady-state int8 decode step's device time with
    the attention kernel's share and the device's busy share, beside the
-   step's bytes bound (every weight read once).
+   step's bytes bound (every weight read once); then the float-cache
+   arena: on a small input (float32) the checks of phase 3's, and at full
+   width 8 requests x 16 tokens of exact 64–512-token prompts through
+   ``LLMEngine(backend="arena")`` with bf16 caches (``max_len`` 1024), with
+   phase 3's checks and readings.
 
 Every ``torch.profiler`` session keeps host-idle margins inside both ends
 (``profiled``): in a few sessions in a hundred the profiler places the
@@ -1683,43 +1699,162 @@ def profile_prefill(torch, arch, params, n_tokens, max_len, kernels,
                 kernel_launches=sum(e.count for e in on_dev))
 
 
-def small_input_arena(torch, name):
+def small_input_arena(torch, name, paged=False):
     """``name``'s smoke config in float32 through the arena on the card
-    (its kernel: B8 for mamba2-2.7b, B9 for recurrentgemma-9b) and on the
-    CPU (plain versions): ≥ 90 % equal greedy tokens; on the card, the slot
-    backend gives the arena's tokens."""
+    (its kernel: B8 for mamba2-2.7b, B9 for recurrentgemma-9b; none for the
+    dense and moe families, which run with ``serve_quant=False``) and on
+    the CPU (plain versions): ≥ 90 % equal greedy tokens; on the card, the
+    slot backend gives the arena's tokens. With ``paged`` (the dense and
+    moe families) the arena and slot runs launch no hand-written kernel,
+    and the port's paged backend on the card (float32 pools, B1) gives
+    ≥ 90 % of the arena's tokens. Returns (card vs CPU, paged vs arena or
+    None, total) equal greedy tokens."""
     from repro_torch import bridge, configs
+    from repro_torch.kernels.build import all_kernels
     from repro_torch.models import registry
     from repro_torch.serve import EngineConfig, LLMEngine
 
     import numpy as np
 
     cfg = dataclasses.replace(configs.smoke_config(name), dtype="float32")
+    if paged:
+        cfg = dataclasses.replace(cfg, serve_quant=False)
     arch = registry.build(cfg)
     npp = bridge.numpy_params(arch.schema(), seed=SEED)
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab, int(rng.integers(3, 40))
                             ).astype(np.int32) for _ in range(6)]
-    outs = {}
+    outs, launched = {}, {}
     for device, backend in (("cuda", "arena"), ("cuda", "slot"),
-                            ("cpu", "arena")):
+                            ("cpu", "arena")) + ((("cuda", "paged"),)
+                                                 if paged else ()):
+        before = sum(k.launches for k in all_kernels())
         eng = LLMEngine(arch, bridge.params_from_numpy(npp, device),
                         EngineConfig(backend=backend, slots=4, max_len=64,
                                      admit_window=2), device=device)
         hs = [eng.add_request(p, max_new_tokens=12) for p in prompts]
         eng.run_until_drained()
         outs[device, backend] = [eng.request(h).output for h in hs]
+        launched[device, backend] = (sum(k.launches for k in all_kernels())
+                                     - before)
     if outs["cuda", "slot"] != outs["cuda", "arena"]:
         raise AssertionError(f"on the card, slot vs arena greedy tokens "
                              f"differ: {outs}")
-    same = sum(a == b for x, y in zip(outs["cuda", "arena"],
-                                      outs["cpu", "arena"])
-               for a, b in zip(x, y))
+
+    def agree(x, y):
+        return sum(a == b for u, v in zip(x, y) for a, b in zip(u, v))
+
+    same = agree(outs["cuda", "arena"], outs["cpu", "arena"])
     total = sum(len(x) for x in outs["cpu", "arena"])
     if same / total < 0.9:
         raise AssertionError(f"{name} card vs CPU greedy tokens: "
                              f"{same}/{total} agree")
-    return same, total
+    if not paged:
+        return same, None, total
+    if launched["cuda", "arena"] or launched["cuda", "slot"]:
+        raise AssertionError(f"{name}: the arena / slot runs launched "
+                             f"{launched} hand-written kernels")
+    same_paged = agree(outs["cuda", "paged"], outs["cuda", "arena"])
+    if same_paged / total < 0.9:
+        raise AssertionError(f"{name} on the card, paged vs arena greedy "
+                             f"tokens: {same_paged}/{total} agree")
+    return same, same_paged, total
+
+
+def counting_prefills(arch):
+    """``arch`` whose ``prefill`` tallies the admissions by the length they
+    prefill (the bucket where the arena pads a prompt, else the exact
+    prompt), and the tally."""
+    tally = {}
+
+    def prefill(params, tokens, max_len, **kw):
+        tally[tokens.shape[1]] = tally.get(tokens.shape[1], 0) + 1
+        return arch.prefill(params, tokens, max_len, **kw)
+
+    return dataclasses.replace(arch, prefill=prefill), tally
+
+
+def float_arena_run(torch, cfg, arch, params, prompts, slots, max_new,
+                    max_len, paged_step=None):
+    """A float-cache dense or moe arch (``serve_quant=False``, bf16 weights
+    and caches) served through ``LLMEngine(backend="arena")`` at full
+    width by ``serve_arena``: every request's token count and finite
+    logits, no hand-written kernel launched, and the admissions by prefill
+    length (for the dense family each a power-of-two bucket holding its
+    prompt); then one profiled steady decode step (``profile_decode``)
+    beside the step's bytes bound: every weight read once (the embedding
+    table only at ``slots`` rows) and the K/V of each slot's valid
+    positions. ``paged_step`` (``decode_steps``' result on bf16 pools in
+    the same run) is printed beside it. Returns the run."""
+    counted, tally = counting_prefills(arch)
+    r = serve_arena(torch, counted, params, prompts, slots, max_new, max_len)
+    if any(r["launches"].values()):
+        raise AssertionError(f"{cfg.name} arena run launched hand-written "
+                             f"kernels: {r['launches']}")
+    if sum(tally.values()) != r["prefills"]:
+        raise AssertionError(f"{cfg.name}: {sum(tally.values())} prefills "
+                             f"for {r['prefills']} admissions")
+    # prompts of 64–512 tokens; a preempted request's re-prefill (prompt
+    # and output) may take the next bucket
+    if arch.supports_padded_prefill and any(
+            n & (n - 1) or n < 64 or n > max_len for n in tally):
+        raise AssertionError(f"{cfg.name}: prefill lengths {tally} are not "
+                             f"power-of-two buckets of 64–{max_len}")
+    print(f"serve {cfg.name} arena (bf16 caches, {slots} slots, max_len "
+          f"{max_len}): {len(prompts)} requests x {max_new} tokens "
+          f"({r['prompt_tokens']} prompt tokens, longest "
+          f"{max(len(p) for p in prompts)}), tokens/s="
+          f"{r['tokens_per_s']:.2f} iter_ms(p50)="
+          f"{r['decode_ms_per_iter_p50']:.2f} iterations="
+          f"{r['iterations']:.0f} preemptions={r['preemptions']} "
+          f"admissions by prefill length "
+          f"({'bucket' if arch.supports_padded_prefill else 'exact'}): "
+          f"{json.dumps(dict(sorted(tally.items())))} "
+          f"cache_bytes={r['state_bytes_per_slot'] * slots} "
+          f"kernels={json.dumps(r['launches'])}", flush=True)
+    # the profiled step is profile_decode's fourth: row b attends its
+    # len[b] + 4 valid positions
+    kv_bytes = ((int(r["cache"]["len"].sum()) + 4 * slots)
+                * r["state_bytes_per_slot"] // max_len)
+    prof = profile_decode(torch, arch, params, r["cache"], r["last_tok"])
+    w_ms, w_bytes = step_bound(params, slots)
+    b_ms = (w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    busy = (f"{prof['device_ms'] / prof['wall_ms']:.4f}" if prof["device_ms"]
+            else "not measured")
+    beside = ("" if paged_step is None else
+              f"; the paged bf16 step of this run: device "
+              f"{paged_step['device_ms']:.3f} ms in "
+              f"{paged_step['kernels']:.0f} kernels, host p50 "
+              f"{paged_step['step_ms_p50']:.2f} ms")
+    print(f"{cfg.name} arena decode step ({slots} slots): host wall "
+          f"{prof['wall_ms']:.2f} ms, device kernel time "
+          f"{prof['device_ms']:.3f} ms in {prof['kernel_launches']} kernels "
+          f"(torch.profiler), device busy share {busy}; bytes bound "
+          f"{b_ms:.3f} ms ({w_bytes / 1e9:.2f} GB of weights read once and "
+          f"{kv_bytes / 1e6:.1f} MB of valid K/V at 3.35 TB/s; weights alone "
+          f"{w_ms:.3f} ms){beside}; device ms by op: "
+          f"{json.dumps(prof['top'])}", flush=True)
+    return r
+
+
+def full_width_slot_agreement(cfg, arch, params, prompts, max_new,
+                              max_len):
+    """Two requests through ``slot`` and through a 2-slot arena at full
+    width (exact-length prefill on both): the same greedy tokens."""
+    from repro_torch.serve import EngineConfig, LLMEngine
+
+    outs = {}
+    for backend in ("arena", "slot"):
+        eng = LLMEngine(arch, params, EngineConfig(
+            backend=backend, slots=2, max_len=max_len,
+            prefill_buckets=False))
+        hs = [eng.add_request(p, max_new_tokens=max_new) for p in prompts]
+        eng.run_until_drained()
+        outs[backend] = [eng.request(h).output for h in hs]
+    if outs["slot"] != outs["arena"]:
+        raise AssertionError(f"{cfg.name} at full width, slot vs arena "
+                             f"greedy tokens differ: {outs}")
+    return sum(len(o) for o in outs["slot"])
 
 
 # ---------------------------------------------------------------------------
@@ -2016,11 +2151,11 @@ def small_input_moe_agreement(torch, quant):
     return same_cpu, same_spec, total
 
 
-def moe_step_bound(params, slots):
-    """Bytes bound of one moe decode step (ms): every weight but the
-    embedding table read once (the expert products run over every
-    expert's buffer), ``slots`` embedding rows; at the card's memory
-    rate."""
+def step_bound(params, slots):
+    """Bytes bound of one decode step's weights (ms, bytes): every weight
+    but the embedding table read once (the moe family's expert products
+    run over every expert's buffer), ``slots`` embedding rows; at the
+    card's memory rate."""
     from repro_torch.models.schema import leaves
 
     nbytes = sum(t.numel() * t.element_size() for t in leaves(params))
@@ -2123,7 +2258,7 @@ def moe_phase(torch, qcfg, slots, max_new, spec_k):
     qarchs = {"bf16": qarch_f, "int8": registry.build(qcfg)}
     qruns = serve_moe(torch, qcfg, qarchs, qparams, slots, max_new, spec_k)
     st = decode_steps(torch, qarchs["int8"], qparams, slots)
-    b_ms, b_bytes = moe_step_bound(qparams, slots)
+    b_ms, b_bytes = step_bound(qparams, slots)
     print(f"qwen3-moe-30b-a3b decode steps (int8 pools, {slots} slots "
           f"running 200-token prompts): step p50 {st['step_ms_p50']:.2f} ms "
           f"(host clock), device {st['device_ms']:.3f} ms a step of which "
@@ -2137,7 +2272,19 @@ def moe_phase(torch, qcfg, slots, max_new, spec_k):
     counts = {name: qruns[label]["launches"][name] for name, label in (
         ("paged_attention", "bf16"), ("paged_attention_int8", "int8"),
         ("paged_attention_verify_int8", "int8 spec+prefix"))}
-    del qparams, qruns
+    del qruns
+    torch.cuda.empty_cache()
+    # the float-cache arena (plain PyTorch, no hand-written kernel)
+    same_c, same_p, total = small_input_arena(torch, "qwen3-moe-30b-a3b",
+                                              paged=True)
+    print(f"small input qwen3-moe-30b-a3b-smoke (float32, serve_quant off): "
+          f"arena card vs CPU greedy tokens {same_c}/{total}; on the card "
+          f"slot == arena, paged (float32 pools) vs arena {same_p}/{total}",
+          flush=True)
+    r = float_arena_run(torch, qcfg, qarch_f, qparams,
+                        random_prompts(qcfg.vocab, 8, seed=17), slots, 16,
+                        1024)
+    del qparams, r
     torch.cuda.empty_cache()
     return counts
 
@@ -2463,12 +2610,24 @@ def main() -> None:
               f"device {st['device_ms']:.3f} ms a step of which int8_gemm "
               f"{st['gemm_device_ms']:.3f} ms, {st['kernels']:.0f} kernels a "
               f"step (torch.profiler)", flush=True)
-    del params
+    # the float-cache arena and slot backends (plain PyTorch, no kernel)
+    for name in ("glm4-9b", "gemma3-4b"):
+        same_c, same_p, total = small_input_arena(torch, name, paged=True)
+        print(f"small input {name}-smoke (float32, serve_quant off): arena "
+              f"card vs CPU greedy tokens {same_c}/{total}; on the card slot "
+              f"== arena, paged (float32 pools) vs arena {same_p}/{total}",
+              flush=True)
+    r = float_arena_run(torch, cfg, arch_f, params, plain, slots, max_new,
+                        1024, paged_step=st)
+    n = full_width_slot_agreement(cfg, arch_f, params, plain[:2], 8, 1024)
+    print(f"glm4-9b at full width: slot == arena (2 slots, exact prefill), "
+          f"{n} greedy tokens", flush=True)
+    del params, r
     torch.cuda.empty_cache()
 
     # -- phase 4: full-width mamba2-2.7b through LLMEngine(backend="arena") -
     phase(4, "mamba2-2.7b on the arena")
-    same_m, total_m = small_input_arena(torch, "mamba2-2.7b")
+    same_m, _, total_m = small_input_arena(torch, "mamba2-2.7b")
     print(f"small input mamba2-2.7b-smoke: card vs CPU greedy tokens "
           f"{same_m}/{total_m}; on the card slot == arena", flush=True)
     march = registry.build(mcfg)
@@ -2519,7 +2678,7 @@ def main() -> None:
 
     # -- phase 5: full-width recurrentgemma-9b through the arena ------------
     phase(5, "recurrentgemma-9b on the arena")
-    same_h, total_h = small_input_arena(torch, "recurrentgemma-9b")
+    same_h, _, total_h = small_input_arena(torch, "recurrentgemma-9b")
     print(f"small input recurrentgemma-9b-smoke (window 16): card vs CPU "
           f"greedy tokens {same_h}/{total_h}; on the card slot == arena",
           flush=True)

@@ -179,9 +179,10 @@ def forward(params, tokens, cfg: ModelConfig):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device: DeviceLike = None):
+               quantized=None, device: DeviceLike = None):
     """Recurrent state + ring KV, stacked like the parameters, and the
-    per-row position vector, on ``device`` (default ``cuda``)."""
+    per-row position vector, on ``device`` (default ``cuda``).
+    ``quantized`` is accepted and ignored, as in the reference."""
     pattern, n_groups, tail = cfg.layer_layout()
     device = resolve_device(device)
     w = _lru_w(cfg)

@@ -1,23 +1,25 @@
 """Mixture-of-Experts transformer family (qwen3-moe-30b-a3b, kimi-k2-1t):
-the paged serving path.
+the paged and dense-arena serving paths.
 
-Port of the paged half of ``repro.models.moe``: dense GQA attention (the
-dense family's paged attention halves, kernels B1/B2 in decode and B4/B5
-in verify) and a top-k routed expert FFN. Routing is token-choice with a
-per-batch-row capacity: each batch row is one routing group, and an
-expert takes at most ``_capacity(cfg, s)`` of a group's ``s · topk``
-slots, in slot order; the rest are dropped (they add nothing to the
-token's output). The parameter tree has the reference schema's keys and
-its leading ``n_stack`` axis.
+Port of ``repro.models.moe`` (its serving half): dense GQA attention (the
+dense family's attention halves: kernels B1/B2 in paged decode and B4/B5
+in verify, plain PyTorch on the arena) and a top-k routed expert FFN.
+Routing is token-choice with a per-batch-row capacity: each batch row is
+one routing group, and an expert takes at most ``_capacity(cfg, s)`` of a
+group's ``s · topk`` slots, in slot order; the rest are dropped (they add
+nothing to the token's output). The parameter tree has the reference
+schema's keys and its leading ``n_stack`` axis.
 
 The family keeps float weights (the W8A8 path is the dense family's) but
 stores K/V in int8 blocks on ``serve_quant`` archs, as the dense family
-does. It defines no arena entry points (``prefill``, ``decode_step``,
-``init_cache``, ``forward``) and no ``quantize_params``, and takes no
-right-padded prompts: pad tokens would enlarge the routing capacity and
-could change which real tokens overflow. The expert products are plain
-batched matrix products over the full ``[B, E, C, D]`` dispatch buffer,
-as in the reference (which computes them outside any Pallas kernel).
+does; its arena entry points (``forward``, ``init_cache``, ``prefill``,
+``decode_step``) are the dense family's scaffolds with this family's
+layers, float caches only, as there. It defines no ``quantize_params``
+and takes no right-padded prompts: pad tokens would enlarge the routing
+capacity and could change which real tokens overflow. The expert
+products are plain batched matrix products over the full ``[B, E, C,
+D]`` dispatch buffer, as in the reference (which computes them outside
+any Pallas kernel).
 """
 
 from __future__ import annotations
@@ -153,7 +155,7 @@ def moe_mlp(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Paged serving layers and steps
+# Layers, and the dense-arena entry points
 # ---------------------------------------------------------------------------
 
 
@@ -169,6 +171,48 @@ def _prefill_layer(xc, p, kind: str, cfg: ModelConfig, positions, *,
     xc, k, v = dense._prefill_attention(xc, p, kind, cfg, positions,
                                         kv_prefix=kv_prefix)
     return _ffn(xc, p, cfg), k, v
+
+
+def forward(params, tokens, cfg: ModelConfig, *, embeds=None):
+    """Teacher-forcing logits [B, S, V]; each batch row routes as a group."""
+    return dense._forward_impl(params, tokens, cfg, layer_fn=_prefill_layer,
+                               embeds=embeds)
+
+
+# the dense family's per-slot KV cache
+init_cache = dense.init_cache
+
+
+def _decode_layer(x, p, c, kind, cfg: ModelConfig, pos):
+    """One-token arena decode through one layer; each row is its own
+    routing group of one token."""
+    x = dense._decode_attention(x, p, c, kind, cfg, pos)
+    return _ffn(x, p, cfg)
+
+
+def decode_step(params, cache, tokens, cfg: ModelConfig, *, qparams=None,
+                embeds=None):
+    """One arena decode step (the dense family's ``decode_step`` contract).
+    ``qparams`` is ignored, as in the reference: the family serves float
+    weights; its int8 K/V step (``serve_quant``) is refused."""
+    del qparams
+    dense._refuse_int8_arena(cfg, None)
+    return dense._decode_impl(params, cache, tokens, cfg,
+                              layer_fn=_decode_layer, embeds=embeds)
+
+
+def prefill(params, tokens, cfg: ModelConfig, max_len: int, *, embeds=None):
+    """Forward pass plus a populated float cache (the dense family's
+    ``prefill`` contract). ``tokens`` is the exact prompt, one routing
+    group a row: there is no ``true_len``, since pad tokens would change
+    the capacity ``_capacity(cfg, S)``."""
+    return dense._prefill_impl(params, tokens, cfg, max_len,
+                               layer_fn=_prefill_layer, embeds=embeds)
+
+
+# ---------------------------------------------------------------------------
+# Paged serving steps
+# ---------------------------------------------------------------------------
 
 
 def _paged_decode_layer(x, p, c, kind, cfg: ModelConfig, pos, table, *,

@@ -1,12 +1,13 @@
 """Architecture registry (port of ``repro.models.registry``).
 
 Ported families: the dense transformer (which also serves the ``vlm-dense``
-configs, frontend stubbed, embeddings in) and the ``moe`` family on their
-paged serving paths, and the Mamba-2 ``ssm`` and Griffin ``hybrid``
-families on the dense-arena entry points (``forward``, ``prefill``,
-``decode_step``, ``init_cache``). Other families raise
-``NotImplementedError`` naming the family. Entry points a family module
-does not define stay ``None``, as in the reference.
+configs, frontend stubbed, embeddings in) and the ``moe`` family, on the
+dense-arena entry points (``forward``, ``prefill``, ``decode_step``,
+``init_cache``; float caches) and their paged serving paths, and the
+Mamba-2 ``ssm`` and Griffin ``hybrid`` families on the dense-arena entry
+points. Other families raise ``NotImplementedError`` naming the family.
+Entry points a family module does not define stay ``None``, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -40,8 +41,8 @@ class Arch:
 
     cfg: ModelConfig
     schema: Callable
-    # dense-arena entry points (None where the port has not ported them:
-    # the dense family's non-paged paths)
+    # dense-arena entry points (None where a family module does not
+    # define them)
     forward: Optional[Callable] = None
     prefill: Optional[Callable] = None
     decode_step: Optional[Callable] = None
@@ -82,9 +83,13 @@ class Arch:
     def serve_backends(self) -> tuple:
         """Execution backends (``repro_torch.serve.backends``) this arch
         serves on. ``slot`` and ``arena`` need the dense-arena entry points
-        (every family has them in the reference; in the port the dense
-        family's are not ported yet), ``paged`` the paged decode and
-        prefill entry points (recurrent state has no KV cache to page)."""
+        (every ported family has them, as every family does in the
+        reference), ``paged`` the paged decode and prefill entry points
+        (recurrent state has no KV cache to page): ``("slot", "arena",
+        "paged")`` for the dense, vlm-dense and moe families, ``("slot",
+        "arena")`` for ssm and hybrid. A ``serve_quant`` dense or moe arch
+        lists ``slot`` and ``arena`` too; ``make_backend`` refuses them
+        there, since their int8 arena step is not ported."""
         out = []
         if self.decode_step is not None and self.prefill is not None:
             out += ["slot", "arena"]

@@ -153,9 +153,11 @@ def forward(params, tokens, cfg: ModelConfig):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device: DeviceLike = None):
+               quantized=None, device: DeviceLike = None):
     """O(1) decode state: conv tail + SSD state, stacked over layers, and
-    the per-row position vector, on ``device`` (default ``cuda``)."""
+    the per-row position vector, on ``device`` (default ``cuda``).
+    ``quantized`` is accepted and ignored, as in the reference (the state
+    has no int8 form)."""
     d_inner, h, conv_ch = _dims(cfg)
     device = resolve_device(device)
     return {

@@ -1,9 +1,23 @@
-"""Dense decoder-only transformer family: the paged serving path.
+"""Dense decoder-only transformer family: the paged and dense-arena serving
+paths.
 
-Port of the paged half of ``repro.models.transformer``. Parameters are a
-dict tree with the reference schema's keys and its leading ``n_stack``
-axis: ``stacks[i][name][g]`` is layer ``g·len(pattern) + i``. The stack is
+Port of ``repro.models.transformer``. Parameters are a dict tree with the
+reference schema's keys and its leading ``n_stack`` axis:
+``stacks[i][name][g]`` is layer ``g·len(pattern) + i``. The stack is
 evaluated as a Python loop over groups (the reference's ``lax.scan``).
+
+Dense arena (``forward``, ``init_cache``, ``prefill``, ``decode_step``):
+a per-slot KV cache ``{"stacks": [{"k", "v"}], "tail": [...], "len"}``
+with leaves ``[n_stack, B, Hkv, S_len, hd]``, where a sliding-window ("L")
+layer keeps a ring of ``S_len = min(local_window, max_len)`` rows
+(position ``p`` at row ``p % S_len``). ``decode_step`` writes into the
+cache it is given, in place. The float path only: the reference's
+``serve_quant`` arena step (int8 K/V, the ITA integer
+``decode_attention_int8``, W8A8 ``qparams``) is not ported, and
+``decode_step`` refuses it by name. Tail layers are written through the
+same in-place views as the stacked ones, so their cache keeps the
+``[1, B, Hkv, S_len, hd]`` shape that ``init_cache`` gives it (the
+reference's ``prefill`` drops the leading axis there, ROADMAP Queue C).
 
 The paged cache is ``{"stacks": [{"k", "v"[, "kscale", "vscale"]}], "len"}``
 with pools ``[n_stack, num_blocks, Hkv, block_len, hd]``. Writes go into the
@@ -163,7 +177,8 @@ def _prefill_attention(xc, p, kind: str, cfg: ModelConfig, positions, *,
 
 
 # ---------------------------------------------------------------------------
-# Dense (per-slot) KV cache writes: the hybrid family's ring layers
+# Dense (per-slot) KV cache writes: the arena's layers (this family's, the
+# moe family's and the hybrid family's ring layers)
 # ---------------------------------------------------------------------------
 
 
@@ -185,6 +200,184 @@ def _cache_write(c, k_new, v_new, pos, kind: str, cfg: ModelConfig):
     c["k"][rows, :, idx] = k_new[:, :, 0].to(c["k"].dtype)
     c["v"][rows, :, idx] = v_new[:, :, 0].to(c["v"].dtype)
     return c
+
+
+def _logits(params, x, cfg: ModelConfig):
+    """Final norm and the LM head: f32 logits [B, S, V]."""
+    x = nn.rms_norm(x, params["final_norm"])
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    return nn.unembed(x, table)
+
+
+# ---------------------------------------------------------------------------
+# Dense arena: teacher forcing, the per-slot KV cache, prefill and decode
+# ---------------------------------------------------------------------------
+
+
+def _embed_in(params, tokens, cfg: ModelConfig, embeds):
+    """``embeds`` when given (the vlm/audio frontend stubs), else the token
+    embedding."""
+    if embeds is not None:
+        return embeds
+    return nn.embed(tokens, params["embed"], cfg.compute_dtype)
+
+
+def forward(params, tokens, cfg: ModelConfig, *, embeds=None):
+    """Teacher-forcing logits [B, S, V]. ``embeds`` [B, S, D] overrides the
+    token embedding."""
+    return _forward_impl(params, tokens, cfg, layer_fn=_prefill_layer,
+                         embeds=embeds)
+
+
+def _forward_impl(params, tokens, cfg: ModelConfig, *, layer_fn,
+                  embeds=None):
+    """Shared forward scaffold over ``layer_fn`` (a prefill layer; its k/v
+    are dropped)."""
+    x = _embed_in(params, tokens, cfg, embeds)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for kind, where, g in _layers(cfg):
+        x, _, _ = layer_fn(x, _entry(params, where, g), kind, cfg, positions)
+    return _logits(params, x, cfg)
+
+
+def _cache_len_for(kind: str, cfg: ModelConfig, max_len: int) -> int:
+    return min(cfg.local_window, max_len) if kind == "L" else max_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               quantized: Optional[bool] = None, device: DeviceLike = None):
+    """Per-slot KV cache on ``device`` (default ``cuda``), stacked like the
+    parameters: ``[n_stack, batch, Hkv, S_len, hd]`` leaves (int8 when
+    ``quantized``, default ``cfg.serve_quant``; else the compute dtype)
+    and the per-row position vector ``len``."""
+    device = resolve_device(device)
+    if quantized is None:
+        quantized = cfg.serve_quant
+    dt = torch.int8 if quantized else cfg.compute_dtype
+    pattern, n_groups, tail = cfg.layer_layout()
+
+    def kv(n_stack, kind):
+        shape = (n_stack, batch, cfg.n_kv_heads,
+                 _cache_len_for(kind, cfg, max_len), cfg.hd)
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+
+    cache: Dict[str, Any] = {
+        "stacks": [kv(n_groups, kind) for kind in pattern],
+        "len": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+    if tail:
+        cache["tail"] = [kv(1, kind) for kind in tail]
+    return cache
+
+
+def _refuse_int8_arena(cfg: ModelConfig, qparams) -> None:
+    if cfg.serve_quant or qparams is not None:
+        raise NotImplementedError(
+            f"arch {cfg.name!r}: the int8 arena decode step (serve_quant: "
+            f"int8 K/V through decode_attention_int8, W8A8 qparams) is not "
+            f"ported to repro_torch yet (ROADMAP item 14b); set "
+            f"serve_quant=False or serve on the paged backend")
+
+
+def _decode_attention(x, p, c, kind, cfg: ModelConfig, pos):
+    """The attention half of a one-token arena decode layer, shared with
+    the moe family: k/v written at each row's position (a ring on "L"
+    layers, ``_cache_write``, in place), then attention over the slot's
+    cache; returns x plus the attention output."""
+    h = nn.rms_norm(x, p["ln1"])
+    q, k, v = _project_qkv(h, p, cfg, pos[:, None, None])
+    _cache_write(c, k, v, pos, kind, cfg)
+    o = attn.decode_attention(q, c["k"], c["v"], pos + 1, ring=kind == "L")
+    return x + nn.dense(_merge_heads(o), p["wo"])
+
+
+def _decode_layer(x, p, c, kind, cfg: ModelConfig, pos):
+    """One-token decode through one layer (float weights and cache)."""
+    x = _decode_attention(x, p, c, kind, cfg, pos)
+    return x + _mlp(nn.rms_norm(x, p["ln2"]), p, cfg)
+
+
+def decode_step(params, cache, tokens, cfg: ModelConfig, *, qparams=None,
+                embeds=None):
+    """One decode step: tokens [B] (or ``embeds`` [B, 1, D]) → ([B, V]
+    logits, the cache written in place with ``len`` advanced by one).
+    ``cache["len"]`` is a per-row position vector, so rows sit at their
+    own positions (the continuous-batching layout)."""
+    _refuse_int8_arena(cfg, qparams)
+    return _decode_impl(params, cache, tokens, cfg, layer_fn=_decode_layer,
+                        embeds=embeds)
+
+
+def _decode_impl(params, cache, tokens, cfg: ModelConfig, *, layer_fn,
+                 embeds=None):
+    """Shared arena decode-step scaffold (layer loop over ``layer_fn``,
+    logits, position advance)."""
+    x = _embed_in(params, None if tokens is None else tokens[:, None], cfg,
+                  embeds)
+    pos = _as_positions(cache["len"], x.shape[0])
+    for kind, where, g in _layers(cfg):
+        x = layer_fn(x, _entry(params, where, g), _entry(cache, where, g),
+                     kind, cfg, pos)
+    logits = _logits(params, x, cfg)
+    cache["len"] = cache["len"] + 1
+    return logits[:, 0], cache
+
+
+def _fill(c, k, v, cfg: ModelConfig) -> None:
+    """Write a prefill's k/v ([B, Hkv, S, hd]) into a fresh cache entry, in
+    place: rows ``0..S-1``, or, where the prompt is longer than a ring,
+    its last ``S_len`` positions with position ``p`` at row ``p % S_len``.
+    Under ``serve_quant`` K/V are requantized first, as every serving
+    write path of the reference does."""
+    if cfg.serve_quant:
+        from repro_torch.models.cache import quantize_kv
+
+        k, v = quantize_kv(k, attn.KV_SCALE), quantize_kv(v, attn.KV_SCALE)
+    s, s_len = k.shape[2], c["k"].shape[2]
+    if s > s_len:
+        k = torch.roll(k[:, :, -s_len:], s % s_len, dims=2)
+        v = torch.roll(v[:, :, -s_len:], s % s_len, dims=2)
+    c["k"][:, :, :min(s, s_len)] = k.to(c["k"].dtype)
+    c["v"][:, :, :min(s, s_len)] = v.to(c["v"].dtype)
+
+
+def prefill(params, tokens, cfg: ModelConfig, max_len: int, *, embeds=None,
+            true_len=None):
+    """Forward pass plus a populated float cache: [B, S] tokens (or
+    ``embeds``) → ([B, V] logits, a batch-B cache of ``max_len``).
+
+    ``true_len`` (a scalar or [B]) serves length-bucketed admission:
+    ``tokens`` may be right-padded to a bucket, the logits are taken at
+    position ``true_len - 1`` and ``len`` is set to ``true_len``, so the
+    pad entries are never attended by decode (causal attention keeps them
+    out of the real positions' prefill too)."""
+    return _prefill_impl(params, tokens, cfg, max_len,
+                         layer_fn=_prefill_layer, embeds=embeds,
+                         true_len=true_len)
+
+
+def _prefill_impl(params, tokens, cfg: ModelConfig, max_len: int, *,
+                  layer_fn, embeds=None, true_len=None):
+    """Shared arena prefill scaffold (layer loop over ``layer_fn``, cache
+    fill, last-real-token logits)."""
+    x = _embed_in(params, tokens, cfg, embeds)
+    b, s = x.shape[:2]
+    positions = torch.arange(s, device=x.device)
+    cache = init_cache(cfg, b, max_len, quantized=False, device=x.device)
+    for kind, where, g in _layers(cfg):
+        x, k, v = layer_fn(x, _entry(params, where, g), kind, cfg, positions)
+        _fill(_entry(cache, where, g), k, v, cfg)
+    if true_len is None:
+        last = x[:, -1:]
+        cache["len"].fill_(s)
+    else:
+        lens = torch.as_tensor(true_len, dtype=torch.int32,
+                               device=x.device).expand(b)
+        rows = torch.arange(b, device=x.device)
+        last = x[rows, lens.long() - 1][:, None]      # last *real* position
+        cache["len"].copy_(lens)
+    return _logits(params, last, cfg)[:, 0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -377,9 +570,7 @@ def _paged_decode_impl(params, cache, tokens, cfg: ModelConfig, table, *,
         x = layer_fn(
             x, _entry(params, where, g), _entry(cache, where, g), kind, cfg,
             pos, table, qparams=qp)
-    x = nn.rms_norm(x, params["final_norm"])
-    table_w = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    logits = nn.unembed(x, table_w)
+    logits = _logits(params, x, cfg)
     cache["len"] = cache["len"] + 1
     return logits[:, 0], cache
 
@@ -500,9 +691,7 @@ def _paged_verify_impl(params, cache, tokens, cfg: ModelConfig, table, *,
         x = layer_fn(
             x, _entry(params, where, g), _entry(cache, where, g), kind, cfg,
             pos, table, qparams=qp)
-    x = nn.rms_norm(x, params["final_norm"])
-    table_w = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return nn.unembed(x, table_w), cache
+    return _logits(params, x, cfg), cache
 
 
 def paged_prefill(params, tokens, cfg: ModelConfig, cache, slot, block_ids,
@@ -583,12 +772,9 @@ def _paged_prefill_impl(params, tokens, cfg: ModelConfig, cache, slot,
             prefill_write_kv(c["k"], k, block_ids)
             prefill_write_kv(c["v"], v, block_ids)
 
-    x = nn.rms_norm(x, params["final_norm"])
-    table_w = params["embed"] if cfg.tie_embeddings else params["unembed"]
     last = x[:, n - 1 - start:n - start]      # last *real* position
-    logits = nn.unembed(last, table_w)
     cache["len"][slot] = n
-    return logits[:, 0], cache
+    return _logits(params, last, cfg)[:, 0], cache
 
 
 # Right-padded prompts are exact for this family (causal attention: real

@@ -9,7 +9,8 @@ selected by ``EngineConfig.backend``:
     One batch-1 decode per slot with a host argmax per token; greedy-only.
   * ``arena`` — :class:`ArenaBackend`: one batched cache with the slot
     dimension (``arch.init_cache``), one batched decode over every slot per
-    iteration, exact-length admission prefill spliced into the slot with
+    iteration, admission prefill (right-padded to a power-of-two length
+    bucket where the family allows it) spliced into the slot with
     ``models.cache.cache_insert``, and the engine's single device→host token
     fetch per iteration.
   * ``paged`` — :class:`PagedBackend`: continuous batching over a shared
@@ -24,10 +25,10 @@ selected by ``EngineConfig.backend``:
     reference.
 
 Which families serve on which backend is ``registry.Arch.serve_backends``:
-in the port the ``ssm`` and ``hybrid`` families serve on ``slot``/``arena``
-and the dense and ``moe`` families on ``paged``. Not ported yet (refused
-with ``NotImplementedError``): the dense and moe families on
-``slot``/``arena``, and mesh sharding.
+in the port every family serves on ``slot``/``arena``, and the dense and
+``moe`` families also on ``paged``. Not ported yet (refused with
+``NotImplementedError``): the dense and moe families' int8 arena step
+(``serve_quant`` archs on ``slot``/``arena``), and mesh sharding.
 """
 
 from __future__ import annotations
@@ -89,6 +90,11 @@ def sample_tokens_per_slot(logits: torch.Tensor, temps, topks, rids, steps,
         gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
         out[i] = torch.argmax(scaled + gumbel).to(torch.int32)
     return out
+
+
+# families whose reference arena step changes under ``serve_quant`` (int8
+# K/V and ``decode_attention_int8``); the recurrent families ignore it
+INT8_ARENA_FAMILIES = ("dense", "vlm-dense", "moe")
 
 
 def _build_qparams(arch: registry.Arch, params):
@@ -180,18 +186,24 @@ def validate_paged_config(arch: registry.Arch, ec: EngineConfig) -> None:
 class ArenaBackend(_BackendBase):
     """Vectorized dense-arena backend.
 
-    One batched cache from ``arch.init_cache(slots, max_len)`` with a
-    per-slot position vector; one batched decode over the whole batch per
-    iteration, empty slots included (their rows are ignored host-side and
-    overwritten by the next admission); per-slot sampling on the device.
-    Admission prefills the exact continuation as a batch-1 cache and
-    splices it into the slot (``cache_insert``, in place; the cache may
-    be a nested tree, as the hybrid family's is). W8A8 serving
-    parameters exist only for the dense families, which do not serve here
-    yet, so the decode takes the float parameters. No ported
-    family takes right-padded prompts here, so there is no bucketed
-    prefill: eager PyTorch has no trace to save, and the families that pad
-    (the dense ones) do not serve on the arena in the port yet.
+    One batched float cache from ``arch.init_cache(slots, max_len,
+    quantized=False)`` with a per-slot position vector; one batched decode
+    over the whole batch per iteration, empty slots included (their rows
+    are ignored host-side and overwritten by the next admission); per-slot
+    sampling on the device. Admission prefills the continuation as a
+    batch-1 cache and splices it into the slot (``cache_insert``, in
+    place; the cache may be a nested tree, as the hybrid family's is).
+
+    Length-bucketed admission, as in the reference: where the family takes
+    right-padded prompts (``arch.supports_padded_prefill``, the dense
+    family) and ``prefill_buckets`` is on, the prompt is zero-padded to
+    ``bucket_for(n, min_bucket, max_len)`` and prefilled with ``true_len
+    = n``, unless the bucket would pass a sliding-window ring
+    (``_bucket_ok``); otherwise the exact prompt. Eager PyTorch has no
+    trace to save, but the bucket sets ``chunked_attention``'s query
+    chunk, so the port pads exactly where the reference does and its float
+    sums match. The decode takes the float parameters: the ``serve_quant``
+    step of the dense and moe families is refused in ``make_backend``.
     """
 
     name = "arena"
@@ -199,9 +211,17 @@ class ArenaBackend(_BackendBase):
     def __init__(self, arch: registry.Arch, params, ec: EngineConfig,
                  device: torch.device):
         super().__init__(arch, params, ec, device)
-        self.cache = arch.init_cache(ec.slots, ec.max_len, device=device)
+        self.cache = arch.init_cache(ec.slots, ec.max_len, quantized=False,
+                                     device=device)
         self.last_tok = torch.zeros((ec.slots,), dtype=torch.int32,
                                     device=device)
+        self._bucketing = ec.prefill_buckets and arch.supports_padded_prefill
+
+    def _bucket_ok(self, bucket: int) -> bool:
+        # a ring (sliding-window) cache drops leading positions once the
+        # prefill is longer than the window: only bucket under it
+        cfg = self.arch.cfg
+        return "L" not in cfg.pattern or bucket <= cfg.local_window
 
     def decode(self, active, slots, samp, any_sampling):
         logits, self.cache = self.arch.decode_step(self.params, self.cache,
@@ -217,9 +237,19 @@ class ArenaBackend(_BackendBase):
     def prefill(self, req: Request, slot: int, samp, any_sampling):
         """Prefill ``req``'s continuation into ``slot``; returns the
         on-device sampled first token (fetched later, with the batch)."""
-        toks = torch.from_numpy(continuation_tokens(req)[None]).to(
-            self.device)
-        logits, single = self.arch.prefill(self.params, toks, self.ec.max_len)
+        toks = continuation_tokens(req)
+        n = toks.size
+        bucket = bucket_for(n, self.ec.min_bucket, self.ec.max_len)
+        if self._bucketing and self._bucket_ok(bucket):
+            padded = np.zeros((1, bucket), np.int32)
+            padded[0, :n] = toks
+            logits, single = self.arch.prefill(
+                self.params, torch.from_numpy(padded).to(self.device),
+                self.ec.max_len, true_len=n)
+        else:
+            logits, single = self.arch.prefill(
+                self.params, torch.from_numpy(toks[None]).to(self.device),
+                self.ec.max_len)
         cache_insert(self.cache, single, slot)
         tok = sample_tokens_per_slot(logits, *samp, self.ec.seed,
                                      any_sampling=any_sampling)  # [1]
@@ -832,10 +862,19 @@ def make_backend(name: str, arch: registry.Arch, params, ec: EngineConfig,
         raise ValueError(
             f"unknown serve backend {name!r} "
             f"(supported: {', '.join(BACKENDS)})") from None
+    cfg = arch.cfg
     if cls is not PagedBackend and name not in arch.serve_backends:
         raise NotImplementedError(
-            f"backend={name!r}: family {arch.cfg.family!r} has no ported "
+            f"backend={name!r}: family {cfg.family!r} has no ported "
             f"dense-arena entry points (prefill/decode_step/init_cache) in "
             f"repro_torch yet; it serves on "
             f"{', '.join(arch.serve_backends) or 'no backend'}")
+    if cls is not PagedBackend and cfg.serve_quant \
+            and cfg.family in INT8_ARENA_FAMILIES:
+        raise NotImplementedError(
+            f"backend={name!r}: arch {cfg.name!r} is quantized "
+            f"(serve_quant), and the {cfg.family!r} family's int8 arena "
+            f"step (int8 K/V through decode_attention_int8, the ITA integer "
+            f"softmax) is not ported to repro_torch yet; set "
+            f"serve_quant=False or use backend='paged'")
     return cls(arch, params, ec, device)

@@ -5,11 +5,13 @@
 and validation, with two differences:
 
 * ``backend`` defaults to ``"paged"``, where the reference's default is
-  ``"arena"``: the dense family, which most configs belong to, and the
-  ``moe`` family serve only on the paged backend in the port so far (their
-  non-paged entry points are not ported). The ``ssm`` and ``hybrid``
-  families serve on ``"arena"`` and ``"slot"`` and have to ask for one of
-  them.
+  ``"arena"``. Every ported family serves on ``"arena"`` and ``"slot"``
+  with float caches, but two pieces of the reference's arena are still
+  missing: the int8 arena step of the dense and ``moe`` families (their
+  ``serve_quant`` archs, the configs' default, are refused there), and
+  ``embeds`` requests. Until both are ported the default stays on the
+  backend that serves those archs; the ``ssm`` and ``hybrid`` families
+  have to ask for ``"arena"`` or ``"slot"``.
 * there is no ``attn_backend`` — the port has no per-op backend ladder, the
   device decides which version of a kernel runs.
 

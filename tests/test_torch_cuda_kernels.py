@@ -30,7 +30,9 @@ gemma3-4b's geometry on ring tables (``start`` in the thousands, window
 ``gemma3-4b-smoke`` agrees with the CPU's. Paged decode and verify
 attention are held at qwen3-moe-30b-a3b's geometry (a GQA group of 8, rows
 up to 4096 keys), and the moe family's paged steps and engine on
-``qwen3-moe-30b-a3b-smoke`` agree with the CPU's.
+``qwen3-moe-30b-a3b-smoke`` agree with the CPU's. The dense and moe
+families' float arena and slot backends (plain PyTorch, no kernel) on the
+card agree with the CPU's arena.
 """
 
 import dataclasses
@@ -826,6 +828,42 @@ def test_mamba_serving_on_card_agrees_with_cpu_and_slot(cuda_device):
         outs[device, backend] = [eng.request(h).output for h in hs]
     # each admission prefill runs the kernel once per layer
     assert ssd_ops.KERNEL.launches - before >= 2 * len(prompts) * cfg.n_layers
+    assert outs["cuda", "slot"] == outs["cuda", "arena"]
+    same = sum(a == b for x, y in zip(outs["cuda", "arena"],
+                                      outs["cpu", "arena"])
+               for a, b in zip(x, y))
+    assert same >= 0.9 * 72, outs
+
+
+@pytest.mark.parametrize("name", ["glm4-9b", "qwen3-moe-30b-a3b"])
+def test_float_arena_serving_on_card_agrees_with_cpu_and_slot(cuda_device,
+                                                              name):
+    """The dense and moe families' smoke configs (float32,
+    ``serve_quant=False``) through the arena and the slot backend on the
+    card and the arena on the CPU: on the card slot == arena, card vs CPU
+    the same greedy tokens up to near-ties, and no hand-written kernel
+    launched (the arena path computes with plain PyTorch)."""
+    from repro_torch.models import registry
+    from repro_torch.serve import EngineConfig, LLMEngine
+
+    cfg = dataclasses.replace(configs.smoke_config(name), dtype="float32",
+                              serve_quant=False)
+    arch = registry.build(cfg)
+    npp = bridge.numpy_params(arch.schema(), seed=0)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(3, 40)))
+               .astype(np.int32) for _ in range(6)]
+    before = {k.name: k.launches for k in build.all_kernels()}
+    outs = {}
+    for device, backend in (("cuda", "arena"), ("cuda", "slot"),
+                            ("cpu", "arena")):
+        eng = LLMEngine(arch, bridge.params_from_numpy(npp, device),
+                        EngineConfig(backend=backend, slots=4, max_len=64,
+                                     admit_window=2), device=device)
+        hs = [eng.add_request(p, max_new_tokens=12) for p in prompts]
+        eng.run_until_drained()
+        outs[device, backend] = [eng.request(h).output for h in hs]
+    assert {k.name: k.launches for k in build.all_kernels()} == before
     assert outs["cuda", "slot"] == outs["cuda", "arena"]
     same = sum(a == b for x, y in zip(outs["cuda", "arena"],
                                       outs["cpu", "arena"])

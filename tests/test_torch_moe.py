@@ -189,7 +189,7 @@ def test_paged_steps_match_reference(quant, pattern, n_layers, monkeypatch):
     jarch, jparams, tarch, tparams = setup_pair(
         NAME, quant, pattern=pattern, n_layers=n_layers)
     cfg = tarch.cfg
-    assert tarch.serve_backends == ("paged",)
+    assert tarch.serve_backends == ("slot", "arena", "paged")
     jcache = jarch.init_paged_cache(2, JLayout(BLK, NBLOCKS, MAX_LEN))
     tcache = tarch.init_paged_cache(2, TLayout(BLK, NBLOCKS, MAX_LEN),
                                     device="cpu")
@@ -284,13 +284,15 @@ def test_prefix_resume_matches_reference(quant, capacity):
 
 
 def test_registry_binds_only_the_paged_entry_points():
+    """The paged entry points and the float arena ones (held to the
+    reference in ``test_torch_moe_arena.py``) are bound; the family has no
+    W8A8 weights and takes no right-padded prompts."""
     arch = tregistry.build(tconfigs.smoke_config(NAME))
-    assert arch.serve_backends == ("paged",)
+    assert arch.serve_backends == ("slot", "arena", "paged")
     assert arch.supports_spec_decode and arch.supports_paged_int8
     assert not arch.supports_padded_prefill
-    for name in ("forward", "prefill", "decode_step", "init_cache",
-                 "quantize_params"):
-        assert getattr(arch, name) is None, name
-    for name in ("prefill", "decode_step", "init_cache", "forward",
-                 "quantize_params", "SUPPORTS_PADDED_PREFILL"):
+    for name in ("forward", "prefill", "decode_step", "init_cache"):
+        assert getattr(arch, name) is not None, name
+    assert arch.quantize_params is None
+    for name in ("quantize_params", "SUPPORTS_PADDED_PREFILL"):
         assert not hasattr(tmoe, name), name

@@ -15,8 +15,9 @@ says otherwise:
   (``test_torch_moe_prefix.py`` and ``test_torch_moe_chunked.py``, which
   share ``identity_cell``; split so that each file takes about a minute).
 
-The family has no arena entry points, so ``arena`` and ``slot`` are
-refused by name.
+The family's float arena and slot paths are held to the reference in
+``test_torch_moe_arena.py``; its int8 arena step is not ported, so a
+``serve_quant`` arch is refused on ``arena`` and ``slot`` by name.
 """
 
 import pytest
@@ -101,8 +102,14 @@ def test_spec_identity_with_reference(k, quant, prefix):
 
 @pytest.mark.parametrize("backend", ["arena", "slot"])
 def test_non_paged_backends_refused_by_name(backend):
-    _, _, tarch, tparams = setup_pair(NAME, False)
+    _, _, qarch, qparams = setup_pair(NAME, True)
     with pytest.raises(NotImplementedError,
-                       match=r"family 'moe'.*prefill/decode_step/init_cache"):
-        LLMEngine(tarch, tparams, EngineConfig(backend=backend),
+                       match=r"serve_quant.*'moe'.*decode_attention_int8"):
+        LLMEngine(qarch, qparams, EngineConfig(backend=backend),
                   device="cpu")
+    _, _, tarch, tparams = setup_pair(NAME, False)
+    eng = LLMEngine(tarch, tparams, EngineConfig(backend=backend),
+                    device="cpu")
+    h = eng.add_request([5, 6, 7], max_new_tokens=3)
+    eng.run_until_drained()
+    assert len(eng.request(h).output) == 3

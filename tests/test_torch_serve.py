@@ -237,9 +237,17 @@ def test_sampling_is_a_function_of_seed_rid_and_index():
     ("backend", dict(backend="arena")),
 ])
 def test_unported_settings_raise_by_name(setting, kw):
+    """The int8 arena step is not ported: a ``serve_quant`` arch is refused
+    on ``slot`` and ``arena`` by name, and the float arch serves there."""
+    _, _, qarch, qparams = setup_pair("glm4-9b", True)
+    with pytest.raises(NotImplementedError,
+                       match=f"{setting}.*serve_quant.*decode_attention_int8"):
+        LLMEngine(qarch, qparams, EngineConfig(**kw), device="cpu")
     _, _, tarch, tparams = setup_pair("glm4-9b", False)
-    with pytest.raises(NotImplementedError, match=setting):
-        LLMEngine(tarch, tparams, EngineConfig(**kw), device="cpu")
+    eng = LLMEngine(tarch, tparams, EngineConfig(**kw), device="cpu")
+    h = eng.add_request([5, 6, 7], max_new_tokens=3)
+    eng.run_until_drained()
+    assert len(eng.request(h).output) == 3
 
 
 def test_mesh_and_ring_layouts_raise_by_name():

@@ -147,15 +147,24 @@ def test_backend_refusals_name_the_family(pair):
     assert tarch.serve_backends == ("slot", "arena")
     with pytest.raises(ValueError, match="'ssm'.*'M'"):
         LLMEngine(tarch, tparams, EngineConfig(backend="paged"), device="cpu")
+    # a quantized dense arch serves on every backend but is refused on the
+    # arena and slot ones by name (their int8 step is not ported); the
+    # float arch serves there
     dense = tregistry.build(dataclasses.replace(
         tconfigs.smoke_config("glm4-9b"), dtype="float32"))
-    assert dense.serve_backends == ("paged",)
+    assert dense.cfg.serve_quant
+    assert dense.serve_backends == ("slot", "arena", "paged")
     dparams = bridge.params_from_numpy(bridge.numpy_params(dense.schema(), 0),
                                        "cpu")
+    dense_f = tregistry.build(dataclasses.replace(dense.cfg,
+                                                  serve_quant=False))
     for backend in ("arena", "slot"):
-        with pytest.raises(NotImplementedError, match="'dense'"):
+        with pytest.raises(NotImplementedError,
+                           match="'dense'.*decode_attention_int8"):
             LLMEngine(dense, dparams, EngineConfig(backend=backend),
                       device="cpu")
+        assert LLMEngine(dense_f, dparams, EngineConfig(backend=backend),
+                         device="cpu").backend.name == backend
     # the greedy-only reference refuses a sampling request, and a
     # non-greedy engine outright
     eng = LLMEngine(tarch, tparams, EngineConfig(backend="slot"),
