@@ -28,6 +28,12 @@ non-zero on failure; none is caught):
    1 to 1040, and over a G layer's full-history table with rows up to 4096
    keys (whole splits below the window), each allclose and then timed, and
    the int8 GEMM bit-exact on gemma3-4b's seven projections at M = 1 and 8;
+   one glm4-9b layer's seven projections at M = 1 (the slot backend's int8
+   decode) timed beside its bound and ``torch._int_mm`` at M = 32; the int8
+   arena's ``decode_attention_int8`` (plain PyTorch, float64 products) on
+   the card equal to the CPU's bit for bit at glm4-9b's decode (8 rows, a
+   1024-row cache, lens 1–1024, a row of equal logits; bf16 and f32) and at
+   gemma3-4b's ring layers (rows wrapped past the 1024-row ring), timed;
    paged decode and verify attention at qwen3-moe-30b-a3b's geometry (32
    query heads on 4 kv heads of 128, a GQA group of 8; 8 rows up to 4096
    keys) on f32, bf16 and int8 pools, allclose, then timed beside SDPA
@@ -83,6 +89,20 @@ non-zero on failure; none is caught):
    admissions by bucket, tokens/s, the iteration p50 and one profiled
    steady decode step beside its bytes bound and the paged bf16 step;
    and 2 requests x 8 tokens through ``slot`` equal to a 2-slot arena's;
+   then the int8 arena step (``serve_quant``: W8A8 projections through the
+   int8 GEMM, int8 K/V in the bf16 caches, the ITA integer
+   ``decode_attention_int8``): on small inputs (glm4-9b-smoke,
+   gemma3-4b-smoke, llava-next-34b-smoke on token prompts; float32) the
+   arena's greedy tokens on the card against the CPU's, slot == arena on
+   the card, the GEMM launched seven times a layer and decode step and
+   nothing else; at full width the same 16 x 32 run with bf16 weights and
+   int8 ``qparams``: token counts, finite logits, the GEMM launched exactly
+   280 times a decode step (prefill none) and every other counter at 0,
+   the admissions by bucket, tokens/s, the iteration p50 and one profiled
+   steady decode step with the GEMM's share beside its bytes bound (int8
+   projection weights, the bf16 unembedding, 8 embedding rows, the valid
+   K/V); then 2 x 8 tokens through ``slot`` (the GEMM at M = 1) equal to a
+   2-slot arena's;
 4. serve full-width mamba2-2.7b (random bf16 weights, 64 layers) through
    ``LLMEngine(backend="arena")``, its launch counts set to 0 just before
    and read just after; check every request finishes with its token count,
@@ -140,9 +160,12 @@ non-zero on failure; none is caught):
    the attention kernel's share and the device's busy share, beside the
    step's bytes bound (every weight read once); then the float-cache
    arena: on a small input (float32) the checks of phase 3's, and at full
-   width 8 requests x 16 tokens of exact 64–512-token prompts through
+   width 4 requests x 8 tokens of exact 64–512-token prompts through
    ``LLMEngine(backend="arena")`` with bf16 caches (``max_len`` 1024), with
-   phase 3's checks and readings.
+   phase 3's checks and readings; then the int8 arena step the same way
+   (small input: qwen3-moe-30b-a3b-smoke under ``serve_quant``; full width:
+   8 requests x 16 tokens, float weights, int8 K/V, no hand-written kernel
+   launched).
 
 Every ``torch.profiler`` session keeps host-idle margins inside both ends
 (``profiled``): in a few sessions in a hundred the profiler places the
@@ -407,9 +430,11 @@ def check_int8_gemm(torch, cfg, slots, verify_rows, flush):
         return [(x[:, :w.shape[0]].contiguous(), w, b, mu, sh)
                 for w, b, mu, sh in layer.values()]
 
-    # timing unit: one layer's seven W8A8 projections at M = slots, and at
-    # the verify pass's M = slots · (spec_tokens + 1)
+    # timing unit: one layer's seven W8A8 projections at M = slots, at the
+    # verify pass's M = slots · (spec_tokens + 1), and at the slot
+    # backend's batch-1 decode, M = 1
     args, args_v = layer_args(slots), layer_args(verify_rows)
+    args_1 = layer_args(1)
 
     def kernel():
         for a in args:
@@ -417,6 +442,10 @@ def check_int8_gemm(torch, cfg, slots, verify_rows, flush):
 
     def kernel_verify():
         for a in args_v:
+            ops.int8_gemm_cuda(*a)
+
+    def kernel_m1():
+        for a in args_1:
             ops.int8_gemm_cuda(*a)
 
     def plain():
@@ -428,6 +457,8 @@ def check_int8_gemm(torch, cfg, slots, verify_rows, flush):
     pad = 32
     lib_args = [(torch.cat([a[0], a[0].new_zeros(pad - slots, a[0].shape[1])]),)
                 + a[1:] for a in args]
+    lib_args_1 = [torch.cat([a[0], a[0].new_zeros(pad - 1, a[0].shape[1])])
+                  for a in args_1]
 
     def library():
         for xp, w, b, mu, sh in lib_args:
@@ -437,6 +468,10 @@ def check_int8_gemm(torch, cfg, slots, verify_rows, flush):
     def library_mm():
         for xp, w, *_ in lib_args:
             torch._int_mm(xp, w)
+
+    def library_mm_m1():
+        for xp, a in zip(lib_args_1, args_1):
+            torch._int_mm(xp, a[1])
 
     def gemm_bound(m, names=shapes):
         ws = [layer[k][0] for k in names]
@@ -449,13 +484,14 @@ def check_int8_gemm(torch, cfg, slots, verify_rows, flush):
     # (holding other weights, clean: the flush reads, so no write-back of
     # dirty lines lands on the projection's time); grid = blocks launched
     per_proj = {}
-    for m, a_m in ((slots, args), (verify_rows, args_v)):
+    for m, a_m in ((1, args_1), (slots, args), (verify_rows, args_v)):
         for name, a in zip(layer, a_m):
             per_proj[f"{name} M={m}"] = (
                 timed(torch, lambda a=a: ops.int8_gemm_cuda(*a), 20, flush),
                 gemm_bound(m, [name])[0], ops.grid(m, *shapes[name]))
     b_ms, b_by = gemm_bound(slots)
     bv_ms, _ = gemm_bound(verify_rows)
+    b1_ms, b1_by = gemm_bound(1)
     dev_ms, dev_ops = device_ms(torch, kernel, flush)
     dev_v_ms, _ = device_ms(torch, kernel_verify, flush)
     return dict(
@@ -470,7 +506,63 @@ def check_int8_gemm(torch, cfg, slots, verify_rows, flush):
         cases_checked=n_checked, verify_rows=verify_rows,
         verify_ms=timed(torch, kernel_verify, 20), verify_bound_ms=bv_ms,
         device_ms=dev_ms, device_ops=dev_ops, verify_device_ms=dev_v_ms,
-        per_proj=per_proj)
+        per_proj=per_proj, m1_ms=timed(torch, kernel_m1, 20, flush),
+        m1_device_ms=device_ms(torch, kernel_m1, flush)[0],
+        m1_bound_ms=b1_ms, m1_bound_by=b1_by,
+        m1_library_mm_ms=timed(torch, library_mm_m1, 20, flush))
+
+
+def check_int8_decode_attention(torch, cfg, gcfg, slots, flush):
+    """The int8 arena's ``decode_attention_int8`` (plain PyTorch, float64
+    products on both devices) on the card against the CPU, bit for bit:
+    ``cfg``'s decode (glm4-9b: ``slots`` rows, a 1024-row cache, lens
+    1–1024, the last row's logits all equal so Σp8 is at its largest) in
+    bf16 and float32, and ``gcfg``'s ring layers (gemma3-4b: 8 / 4 heads of
+    256 over a 1024-row ring, rows wrapped past it) in bf16; caches holding
+    the integers in the compute dtype, as the arena's do. Returns the
+    cases checked, the card's ms a call at ``cfg``'s bf16 shape (event ms,
+    L2 flushed), the CPU's and the call's bytes bound (q, the valid K/V
+    rows, the output)."""
+    from repro_torch.models.attention import decode_attention_int8
+
+    g = torch.Generator().manual_seed(SEED + 2)
+    s = 1024
+    cases = {}
+    for c, dtype, lens in (
+            (cfg, torch.bfloat16, [1, 17, 130, 255, 512, 777, 1000, 1024]),
+            (cfg, torch.float32, [1, 17, 130, 255, 512, 777, 1000, 1024]),
+            (gcfg, torch.bfloat16, [1, 300, 1023, 1024, 1025, 1500, 2900,
+                                    3000])):
+        q = torch.randn((slots, c.n_heads, 1, c.hd), generator=g) * 2
+        k = torch.randint(-127, 128, (slots, c.n_kv_heads, s, c.hd),
+                          generator=g).float()
+        v = torch.randint(-127, 128, (slots, c.n_kv_heads, s, c.hd),
+                          generator=g).float()
+        k[-1] = 0                        # equal logits: every p8 is 127
+        args = [t.to(dtype) for t in (q, k, v)] + [
+            torch.tensor(lens[:slots], dtype=torch.int32)]
+        want = decode_attention_int8(*args)
+        dev_args = [t.cuda() for t in args]
+        got = decode_attention_int8(*dev_args)
+        torch.cuda.synchronize()
+        label = f"{c.name} {str(dtype).split('.')[-1]}"
+        if not bit_equal(got.cpu(), want) \
+                or not bool(torch.isfinite(want).all()):
+            raise AssertionError(f"decode_attention_int8 {label}: card vs "
+                                 f"CPU differ or not finite")
+        cases[label] = (args, dev_args)
+    args, dev_args = cases[f"{cfg.name} bfloat16"]
+    esz = 2
+    valid = int(torch.clamp(args[3], max=s).sum())
+    nbytes = (2 * args[0].numel() + 2 * valid * cfg.n_kv_heads * cfg.hd) * esz
+    t0 = time.perf_counter()
+    for _ in range(3):
+        decode_attention_int8(*args)
+    cpu_ms = (time.perf_counter() - t0) / 3 * 1e3
+    return dict(cases_checked=len(cases),
+                ms=timed(torch, lambda: decode_attention_int8(*dev_args), 20,
+                         flush),
+                cpu_ms=cpu_ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
 
 
 def attention_case(torch, cfg, slots, lens, *, pool_dtype, int8, blk,
@@ -1620,13 +1712,16 @@ def serve_arena(torch, arch, params, prompts, slots, max_new, max_len):
         if len(r.output) != max_new or r.finish_reason != "length":
             raise AssertionError(
                 f"request {r.rid}: {len(r.output)} tokens, {r.finish_reason}")
-    logits, _ = arch.decode_step(params, eng.cache, eng.backend.last_tok)
+    qkw = {} if eng.qparams is None else {"qparams": eng.qparams}
+    logits, _ = arch.decode_step(params, eng.cache, eng.backend.last_tok,
+                                 **qkw)
     if tuple(logits.shape) != (slots, arch.cfg.vocab) \
             or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"logits {tuple(logits.shape)} not finite")
     m = eng.metrics()
     preemptions = sum(r.preemptions for r in reqs)
-    return dict(cache=eng.cache, last_tok=eng.backend.last_tok,
+    return dict(cache=eng.cache, last_tok=eng.backend.last_tok, qkw=qkw,
+        decode_dispatches=eng.backend.decode_dispatches,
         tokens_per_s=sum(len(r.output) for r in reqs) / wall,
         decode_ms_per_iter_p50=m["iter_wall_p50_ms"],
         iterations=m["iterations"], wall_s=wall, preemptions=preemptions,
@@ -1638,21 +1733,23 @@ def serve_arena(torch, arch, params, prompts, slots, max_new, max_len):
         launches=counts)
 
 
-def profile_decode(torch, arch, params, cache, tokens):
-    """One arena decode step: host wall (synchronized, unprofiled) and the
-    device's kernel time from ``torch.profiler``, with the ops that take the
-    most device time. Device time 0 means the profiler saw no device
-    activity (not measured)."""
+def profile_decode(torch, arch, params, cache, tokens, kernels=(), **kw):
+    """One arena decode step (``kw`` passed on, e.g. ``qparams``): host wall
+    (synchronized, unprofiled) and the device's kernel time from
+    ``torch.profiler``, with the ops that take the most device time and the
+    device time of the kernels named in ``kernels``. Device time 0 means
+    the profiler saw no device activity (not measured)."""
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        arch.decode_step(params, cache, tokens)
+        arch.decode_step(params, cache, tokens, **kw)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     with profiled(torch) as prof:
-        arch.decode_step(params, cache, tokens)
+        arch.decode_step(params, cache, tokens, **kw)
     avgs = prof.key_averages()
+    named = kernels
     # kernels are the device-side entries; each host op's self device time
     # is the time of the kernels it launched (the same kernels again)
     kernels = [e for e in avgs if str(e.device_type).endswith("CUDA")]
@@ -1661,6 +1758,8 @@ def profile_decode(torch, arch, params, cache, tokens):
     return dict(wall_ms=sorted(walls)[1],
                 device_ms=sum(dev_us(e) for e in kernels) / 1e3,
                 kernel_launches=sum(e.count for e in kernels),
+                named_ms=sum(dev_us(e) for e in kernels
+                             if any(n in e.key for n in named)) / 1e3,
                 top={e.key: round(dev_us(e) / 1e3, 4) for e in top})
 
 
@@ -1699,19 +1798,21 @@ def profile_prefill(torch, arch, params, n_tokens, max_len, kernels,
                 kernel_launches=sum(e.count for e in on_dev))
 
 
-def small_input_arena(torch, name, paged=False):
+def small_input_arena(torch, name, paged=False, quant=False):
     """``name``'s smoke config in float32 through the arena on the card
-    (its kernel: B8 for mamba2-2.7b, B9 for recurrentgemma-9b; none for the
-    dense and moe families, which run with ``serve_quant=False``) and on
-    the CPU (plain versions): ≥ 90 % equal greedy tokens; on the card, the
-    slot backend gives the arena's tokens. With ``paged`` (the dense and
-    moe families) the arena and slot runs launch no hand-written kernel,
-    and the port's paged backend on the card (float32 pools, B1) gives
-    ≥ 90 % of the arena's tokens. Returns (card vs CPU, paged vs arena or
-    None, total) equal greedy tokens."""
+    (its kernel: B8 for mamba2-2.7b, B9 for recurrentgemma-9b) and on the
+    CPU (plain versions): ≥ 90 % equal greedy tokens; on the card, the
+    slot backend gives the arena's tokens. The dense and moe families run
+    with ``paged`` (``serve_quant=False``: no hand-written kernel, and the
+    port's paged backend on the card, float32 pools and B1, gives ≥ 90 % of
+    the arena's tokens) or with ``quant`` (the int8 arena step: the dense
+    families' W8A8 projections launch B3 seven times a layer and decode
+    step, the moe family no kernel). Returns (card vs CPU, paged vs arena
+    or None, total) equal greedy tokens."""
     from repro_torch import bridge, configs
     from repro_torch.kernels.build import all_kernels
     from repro_torch.models import registry
+    from repro_torch.models.transformer import LINEARS
     from repro_torch.serve import EngineConfig, LLMEngine
 
     import numpy as np
@@ -1724,19 +1825,26 @@ def small_input_arena(torch, name, paged=False):
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab, int(rng.integers(3, 40))
                             ).astype(np.int32) for _ in range(6)]
-    outs, launched = {}, {}
+    outs = {}
     for device, backend in (("cuda", "arena"), ("cuda", "slot"),
                             ("cpu", "arena")) + ((("cuda", "paged"),)
                                                  if paged else ()):
-        before = sum(k.launches for k in all_kernels())
+        before = {k.name: k.launches for k in all_kernels()}
         eng = LLMEngine(arch, bridge.params_from_numpy(npp, device),
                         EngineConfig(backend=backend, slots=4, max_len=64,
                                      admit_window=2), device=device)
         hs = [eng.add_request(p, max_new_tokens=12) for p in prompts]
         eng.run_until_drained()
         outs[device, backend] = [eng.request(h).output for h in hs]
-        launched[device, backend] = (sum(k.launches for k in all_kernels())
-                                     - before)
+        launched = {k.name: k.launches - before[k.name]
+                    for k in all_kernels()}
+        want = {k: 0 for k in launched}
+        if quant and eng.qparams is not None and device == "cuda":
+            want["int8_gemm"] = (len(LINEARS) * cfg.n_layers
+                                 * eng.backend.decode_dispatches)
+        if (paged or quant) and backend != "paged" and launched != want:
+            raise AssertionError(f"{name} {backend} on {device} launched "
+                                 f"{launched}, want {want}")
     if outs["cuda", "slot"] != outs["cuda", "arena"]:
         raise AssertionError(f"on the card, slot vs arena greedy tokens "
                              f"differ: {outs}")
@@ -1751,9 +1859,6 @@ def small_input_arena(torch, name, paged=False):
                              f"{same}/{total} agree")
     if not paged:
         return same, None, total
-    if launched["cuda", "arena"] or launched["cuda", "slot"]:
-        raise AssertionError(f"{name}: the arena / slot runs launched "
-                             f"{launched} hand-written kernels")
     same_paged = agree(outs["cuda", "paged"], outs["cuda", "arena"])
     if same_paged / total < 0.9:
         raise AssertionError(f"{name} on the card, paged vs arena greedy "
@@ -1774,23 +1879,44 @@ def counting_prefills(arch):
     return dataclasses.replace(arch, prefill=prefill), tally
 
 
-def float_arena_run(torch, cfg, arch, params, prompts, slots, max_new,
-                    max_len, paged_step=None):
-    """A float-cache dense or moe arch (``serve_quant=False``, bf16 weights
-    and caches) served through ``LLMEngine(backend="arena")`` at full
-    width by ``serve_arena``: every request's token count and finite
-    logits, no hand-written kernel launched, and the admissions by prefill
+def qparams_bytes(qparams):
+    """Bytes of a ``quantize_params`` tree: int8 weights and the int32
+    bias, multiplier and shift vectors."""
+    return sum(getattr(q, f).numel() * getattr(q, f).element_size()
+               for layers in qparams.values() for layer in layers
+               for q in layer.values()
+               for f in ("w_q", "bias", "mult", "shift"))
+
+
+def arena_run(torch, cfg, arch, params, prompts, slots, max_new, max_len,
+              paged_step=None):
+    """A dense or moe arch (bf16 weights and caches) served through
+    ``LLMEngine(backend="arena")`` at full width by ``serve_arena``: every
+    request's token count and finite logits, and the admissions by prefill
     length (for the dense family each a power-of-two bucket holding its
-    prompt); then one profiled steady decode step (``profile_decode``)
-    beside the step's bytes bound: every weight read once (the embedding
-    table only at ``slots`` rows) and the K/V of each slot's valid
-    positions. ``paged_step`` (``decode_steps``' result on bf16 pools in
-    the same run) is printed beside it. Returns the run."""
+    prompt). With float caches (``serve_quant=False``) no hand-written
+    kernel runs; under ``serve_quant`` (the int8 arena step) the dense
+    family's W8A8 projections launch B3 exactly seven times a layer and
+    decode step, prefill none, and nothing else runs a kernel. Then one
+    profiled steady decode step (``profile_decode``, B3's share) beside
+    the step's bytes bound: every weight read once (the embedding table
+    only at ``slots`` rows; the projections as int8 ``qparams`` where the
+    backend built them) and the K/V of each slot's valid positions.
+    ``paged_step`` (``decode_steps``' result on bf16 pools in the same
+    run) is printed beside it. Returns the run."""
+    from repro_torch.models.transformer import LINEARS
+
     counted, tally = counting_prefills(arch)
     r = serve_arena(torch, counted, params, prompts, slots, max_new, max_len)
-    if any(r["launches"].values()):
-        raise AssertionError(f"{cfg.name} arena run launched hand-written "
-                             f"kernels: {r['launches']}")
+    want = {k: 0 for k in r["launches"]}
+    quant = "qparams" in r["qkw"]
+    if quant:
+        want["int8_gemm"] = (len(LINEARS) * cfg.n_layers
+                             * r["decode_dispatches"])
+    if r["launches"] != want:
+        raise AssertionError(f"{cfg.name} arena run launched {r['launches']}"
+                             f", want {want} for {r['decode_dispatches']} "
+                             f"decode steps")
     if sum(tally.values()) != r["prefills"]:
         raise AssertionError(f"{cfg.name}: {sum(tally.values())} prefills "
                              f"for {r['prefills']} admissions")
@@ -1800,13 +1926,16 @@ def float_arena_run(torch, cfg, arch, params, prompts, slots, max_new,
             n & (n - 1) or n < 64 or n > max_len for n in tally):
         raise AssertionError(f"{cfg.name}: prefill lengths {tally} are not "
                              f"power-of-two buckets of 64–{max_len}")
-    print(f"serve {cfg.name} arena (bf16 caches, {slots} slots, max_len "
+    kind = ("int8 arena step, bf16 caches holding int8 K/V"
+            if arch.cfg.serve_quant else "bf16 caches")
+    print(f"serve {cfg.name} arena ({kind}, {slots} slots, max_len "
           f"{max_len}): {len(prompts)} requests x {max_new} tokens "
           f"({r['prompt_tokens']} prompt tokens, longest "
           f"{max(len(p) for p in prompts)}), tokens/s="
           f"{r['tokens_per_s']:.2f} iter_ms(p50)="
           f"{r['decode_ms_per_iter_p50']:.2f} iterations="
-          f"{r['iterations']:.0f} preemptions={r['preemptions']} "
+          f"{r['iterations']:.0f} decode_steps={r['decode_dispatches']} "
+          f"preemptions={r['preemptions']} "
           f"admissions by prefill length "
           f"({'bucket' if arch.supports_padded_prefill else 'exact'}): "
           f"{json.dumps(dict(sorted(tally.items())))} "
@@ -1816,8 +1945,18 @@ def float_arena_run(torch, cfg, arch, params, prompts, slots, max_new,
     # len[b] + 4 valid positions
     kv_bytes = ((int(r["cache"]["len"].sum()) + 4 * slots)
                 * r["state_bytes_per_slot"] // max_len)
-    prof = profile_decode(torch, arch, params, r["cache"], r["last_tok"])
+    prof = profile_decode(torch, arch, params, r["cache"], r["last_tok"],
+                          kernels=("int8_gemm",), **r["qkw"])
     w_ms, w_bytes = step_bound(params, slots)
+    what = "weights read once"
+    if quant:
+        proj = sum(t.numel() * t.element_size()
+                   for layers in (params["stacks"], params.get("tail", []))
+                   for layer in layers for n, t in layer.items()
+                   if n in LINEARS)
+        w_bytes += qparams_bytes(r["qkw"]["qparams"]) - proj
+        w_ms = w_bytes / HBM_BYTES_PER_S * 1e3
+        what = "weights read once, the projections as int8"
     b_ms = (w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
     busy = (f"{prof['device_ms'] / prof['wall_ms']:.4f}" if prof["device_ms"]
             else "not measured")
@@ -1826,11 +1965,12 @@ def float_arena_run(torch, cfg, arch, params, prompts, slots, max_new,
               f"{paged_step['device_ms']:.3f} ms in "
               f"{paged_step['kernels']:.0f} kernels, host p50 "
               f"{paged_step['step_ms_p50']:.2f} ms")
-    print(f"{cfg.name} arena decode step ({slots} slots): host wall "
+    print(f"{cfg.name} arena decode step ({kind}, {slots} slots): host wall "
           f"{prof['wall_ms']:.2f} ms, device kernel time "
           f"{prof['device_ms']:.3f} ms in {prof['kernel_launches']} kernels "
-          f"(torch.profiler), device busy share {busy}; bytes bound "
-          f"{b_ms:.3f} ms ({w_bytes / 1e9:.2f} GB of weights read once and "
+          f"(torch.profiler), int8_gemm {prof['named_ms']:.3f} ms of it, "
+          f"device busy share {busy}; bytes bound "
+          f"{b_ms:.3f} ms ({w_bytes / 1e9:.2f} GB of {what} and "
           f"{kv_bytes / 1e6:.1f} MB of valid K/V at 3.35 TB/s; weights alone "
           f"{w_ms:.3f} ms){beside}; device ms by op: "
           f"{json.dumps(prof['top'])}", flush=True)
@@ -1840,21 +1980,27 @@ def float_arena_run(torch, cfg, arch, params, prompts, slots, max_new,
 def full_width_slot_agreement(cfg, arch, params, prompts, max_new,
                               max_len):
     """Two requests through ``slot`` and through a 2-slot arena at full
-    width (exact-length prefill on both): the same greedy tokens."""
+    width (exact-length prefill on both): the same greedy tokens. Returns
+    the tokens compared and the launch counts of each run (set to 0 just
+    before it)."""
+    from repro_torch.kernels.build import all_kernels
     from repro_torch.serve import EngineConfig, LLMEngine
 
-    outs = {}
+    outs, launches = {}, {}
     for backend in ("arena", "slot"):
         eng = LLMEngine(arch, params, EngineConfig(
             backend=backend, slots=2, max_len=max_len,
             prefill_buckets=False))
+        for k in all_kernels():
+            k.launches = 0
         hs = [eng.add_request(p, max_new_tokens=max_new) for p in prompts]
         eng.run_until_drained()
         outs[backend] = [eng.request(h).output for h in hs]
+        launches[backend] = {k.name: k.launches for k in all_kernels()}
     if outs["slot"] != outs["arena"]:
         raise AssertionError(f"{cfg.name} at full width, slot vs arena "
                              f"greedy tokens differ: {outs}")
-    return sum(len(o) for o in outs["slot"])
+    return sum(len(o) for o in outs["slot"]), launches
 
 
 # ---------------------------------------------------------------------------
@@ -2281,9 +2427,20 @@ def moe_phase(torch, qcfg, slots, max_new, spec_k):
           f"arena card vs CPU greedy tokens {same_c}/{total}; on the card "
           f"slot == arena, paged (float32 pools) vs arena {same_p}/{total}",
           flush=True)
-    r = float_arena_run(torch, qcfg, qarch_f, qparams,
-                        random_prompts(qcfg.vocab, 8, seed=17), slots, 16,
-                        1024)
+    # 4 x 8 tokens: the int8 run below is the slice's; this one keeps the
+    # float arena driven at full width inside the run's time budget
+    r = arena_run(torch, qcfg, qarch_f, qparams,
+                  random_prompts(qcfg.vocab, 4, seed=17), slots, 8, 1024)
+    del r
+    # the int8 arena step: float weights, int8 K/V, the ITA integer decode
+    # attention in plain PyTorch (no hand-written kernel)
+    same_c, _, total = small_input_arena(torch, "qwen3-moe-30b-a3b",
+                                         quant=True)
+    print(f"small input qwen3-moe-30b-a3b-smoke (float32, int8 arena step): "
+          f"arena card vs CPU greedy tokens {same_c}/{total}; on the card "
+          f"slot == arena", flush=True)
+    r = arena_run(torch, qcfg, qarchs["int8"], qparams,
+                  random_prompts(qcfg.vocab, 8, seed=17), slots, 16, 1024)
     del qparams, r
     torch.cuda.empty_cache()
     return counts
@@ -2386,6 +2543,7 @@ def main() -> None:
               for check, extra in ((check_attention, ()),
                                    (check_verify, (spec_k + 1,)))
               for i8 in (False, True)]
+    i8_attn = check_int8_decode_attention(torch, cfg, gcfg, slots, flush)
     del scratch
     for e in entries:
         print_entry(e)
@@ -2449,6 +2607,12 @@ def main() -> None:
           f"ms; {gemm['cases_checked']} cases bit-exact; torch._int_mm "
           f"alone (the product only, M=32, 7 projections): "
           f"{gemm['library_mm_ms']:.4f} ms", flush=True)
+    print(f"kernel int8_gemm at M=1 (the slot backend's int8 decode; 7 "
+          f"projections of one layer, L2 flushed by a read before each "
+          f"layer): kernel_ms={gemm['m1_ms']:.4f} device_ms="
+          f"{opt_ms(gemm['m1_device_ms'])} bound_ms={gemm['m1_bound_ms']:.4f}"
+          f" ({gemm['m1_bound_by']}); torch._int_mm alone at M=32 (M=1 "
+          f"padded): {gemm['m1_library_mm_ms']:.4f} ms", flush=True)
     print("kernel int8_gemm per projection (event ms with L2 flushed by a "
           "read before each call, bound ms, blocks): " + json.dumps(
               {k: [round(t, 4), round(b, 4), grid]
@@ -2465,6 +2629,13 @@ def main() -> None:
               f"(torch.profiler); grid {tuple(e['grid'])} = {ctas} blocks "
               f"for 132 SMs; {e['cases_checked']} cases checked",
               flush=True)
+    print(f"decode_attention_int8 (the int8 arena's attention, plain "
+          f"PyTorch, float64 products): card == CPU bit for bit in "
+          f"{i8_attn['cases_checked']} cases (glm4-9b bf16 and f32, {slots} "
+          f"rows, lens 1-1024, a row of equal logits; gemma3-4b bf16 ring "
+          f"rows wrapped to 3000); at glm4-9b bf16 event ms "
+          f"{i8_attn['ms']:.4f} (L2 flushed), CPU ms {i8_attn['cpu_ms']:.2f}, "
+          f"bytes bound {i8_attn['bound_ms']:.5f} ms", flush=True)
     print("verify kernels at Q=1 and in row 0: bit-equal to decode (serving "
           "lens and split-boundary lens)", flush=True)
     for e in g_attn:
@@ -2617,12 +2788,33 @@ def main() -> None:
               f"card vs CPU greedy tokens {same_c}/{total}; on the card slot "
               f"== arena, paged (float32 pools) vs arena {same_p}/{total}",
               flush=True)
-    r = float_arena_run(torch, cfg, arch_f, params, plain, slots, max_new,
-                        1024, paged_step=st)
-    n = full_width_slot_agreement(cfg, arch_f, params, plain[:2], 8, 1024)
+    r = arena_run(torch, cfg, arch_f, params, plain, slots, max_new, 1024,
+                  paged_step=st)
+    n, _ = full_width_slot_agreement(cfg, arch_f, params, plain[:2], 8, 1024)
     print(f"glm4-9b at full width: slot == arena (2 slots, exact prefill), "
           f"{n} greedy tokens", flush=True)
-    del params, r
+    del r
+    # the int8 arena step (serve_quant: W8A8 projections through B3, int8
+    # K/V in the bf16 caches, the ITA integer decode attention)
+    for name in ("glm4-9b", "gemma3-4b", "llava-next-34b"):
+        same_c, _, total = small_input_arena(torch, name, quant=True)
+        print(f"small input {name}-smoke (float32, int8 arena step): arena "
+              f"card vs CPU greedy tokens {same_c}/{total}; on the card slot "
+              f"== arena", flush=True)
+    r = arena_run(torch, cfg, archs["int8"], params, plain, slots, max_new,
+                  1024)
+    main_counts["int8_gemm"] += r["launches"]["int8_gemm"]
+    del r
+    n, launched = full_width_slot_agreement(cfg, archs["int8"], params,
+                                            plain[:2], 8, 1024)
+    if launched["slot"]["int8_gemm"] == 0:
+        raise AssertionError("the int8 slot run never launched int8_gemm")
+    main_counts["int8_gemm"] += launched["slot"]["int8_gemm"]
+    print(f"glm4-9b int8 arena step at full width: slot == arena (2 slots, "
+          f"exact prefill), {n} greedy tokens; int8_gemm launched "
+          f"{launched['slot']['int8_gemm']} times by slot (M = 1), "
+          f"{launched['arena']['int8_gemm']} by arena (M = 2)", flush=True)
+    del params
     torch.cuda.empty_cache()
 
     # -- phase 4: full-width mamba2-2.7b through LLMEngine(backend="arena") -

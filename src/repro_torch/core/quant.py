@@ -36,6 +36,11 @@ def recip32(c: float) -> float:
 
 
 def _i32(x, like: torch.Tensor) -> torch.Tensor:
+    """``x`` as int32 on ``like``'s device. A Python number is filled in
+    place there: ``as_tensor`` would copy it from the host, and on a card
+    each such copy waits for every queued launch."""
+    if isinstance(x, (int, float)):
+        return torch.full((), x, dtype=torch.int32, device=like.device)
     return torch.as_tensor(x, dtype=torch.int32, device=like.device)
 
 

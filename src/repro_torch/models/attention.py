@@ -5,8 +5,11 @@
 query blocks stream over the keys so the score matrix is one chunk at a
 time, with causal, bidirectional and sliding-window masks and GQA head
 grouping. ``decode_attention`` is the one-token attention over a dense
-per-slot cache (the hybrid family's ring layers), plain PyTorch as the
-reference's is plain jnp. Decode attention over the block pool lives in
+per-slot cache (the float arena's, and the hybrid family's ring layers),
+and ``decode_attention_int8`` its ITA integer counterpart on ``serve_quant``
+arenas, both plain PyTorch as the reference's are plain jnp (bit-exact
+with the jitted reference in the integer case). Decode attention over the
+block pool lives in
 ``repro_torch.kernels.paged_attention``. ``int8_attention`` is the
 paper-faithful INT8 attention (float in and out, quantized inside) over the
 ITA fused kernel, ``repro_torch.kernels.ita_attention``.
@@ -16,8 +19,10 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
+from repro_torch.core.quant import recip32
 from repro_torch.kernels.ita_attention.ops import ita_attention
 
 NEG_INF = -1e30
@@ -109,6 +114,86 @@ def decode_attention(
     p = softmax(logits)
     out = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
     return out.reshape(b, hq, 1, d).to(q.dtype)
+
+
+def _q_to_int8_scale(d: int) -> float:
+    """The one f32 constant the reference's jitted ``q · d^-½ / Q_SCALE``
+    becomes: XLA turns the division into a multiply by the f32 reciprocal
+    and folds the two constant multiplies into one (their f32 product), so
+    q is rounded once, from ``q · c``."""
+    return float(np.float32(np.float32(d ** -0.5) * np.float32(
+        recip32(Q_SCALE))))
+
+
+def _int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact integer ``a @ b`` (int8-valued operands of any dtype) as int32.
+
+    The products run in float64 on every device: CUDA has no integer
+    ``matmul``, and an f32 product is exact only while each partial sum
+    stays below 2^24 (the AV sum passes it at S ≈ 1040 on a row of equal
+    logits) and follows the TF32 switch besides. Every partial sum here is
+    an integer below 2^53, so f64 is exact in any summation order."""
+    return (a.double() @ b.double()).to(torch.int32)
+
+
+def decode_attention_int8(
+    q: torch.Tensor,         # [B, Hq, 1, D] float (post-RoPE)
+    k_cache8: torch.Tensor,  # [B, Hkv, S_cache, D] int8-valued (KV_SCALE)
+    v_cache8: torch.Tensor,
+    cache_len,               # [] or [B] int — valid entries (per row)
+    *,
+    window: Optional[int] = None,
+    start=None,              # [B] absolute position of cache row 0
+) -> torch.Tensor:
+    """One-token ITA integer attention against an int8-valued KV cache.
+
+    Port of the reference's ``decode_attention_int8`` (grouped GQA): int8
+    q, exact int32 scores, requantized to int8 logits, the ITA base-2
+    integer softmax (``core.ita``), int8 probabilities and an exact int32
+    AV product, divided by the probabilities' sum. The cache may be int8
+    or hold the integers in a float dtype (the arena's compute-dtype
+    cache). ``window`` masks entries before ``cache_len − window``;
+    ``start`` shifts the masks to absolute positions (row ``j`` holds
+    position ``start + j``). A row with no valid entry attends every row
+    alike, as in the reference.
+    """
+    from repro_torch.core import ita
+    from repro_torch.core.quant import quantize_to_fixed_point_py, requantize
+
+    b, hq, _, d = q.shape
+    hkv, s_cache = k_cache8.shape[1], k_cache8.shape[2]
+    group = hq // hkv
+    q8 = torch.clamp(torch.round(q.float() * _q_to_int8_scale(d)), -127, 127)
+    q8g = q8.reshape(b, hkv, group, d)             # Sq = 1 folded in
+    s32 = _int_dot(q8g, k_cache8.transpose(-1, -2))   # [B, Hkv, group, S]
+
+    s_logit = LOGIT_AMAX / 127.0
+    mlt, sh = quantize_to_fixed_point_py(Q_SCALE * KV_SCALE / s_logit)
+    s8 = requantize(s32, mlt, sh)
+    spec = ita.SoftmaxSpec(s_logit)
+    t = (s8.to(torch.int32) * spec.alpha_mult) >> ita.sra_count(
+        spec.alpha_rshift)
+    neg = ita.NEG_T
+    t = torch.clamp(t, min=neg)
+    idx = torch.arange(s_cache, dtype=torch.int32, device=q.device)
+    idx = idx.reshape(1, 1, 1, -1)
+    if start is not None:
+        idx = idx + torch.as_tensor(start, dtype=torch.int32,
+                                    device=q.device).reshape(-1, 1, 1, 1)
+    cl = torch.as_tensor(cache_len, dtype=torch.int32,
+                         device=q.device).reshape(-1, 1, 1, 1)
+    valid = idx < cl
+    if window is not None:
+        valid = valid & (idx >= cl - window)
+    t = torch.where(valid, t, neg)
+    m = t.amax(dim=-1, keepdim=True)
+    be = -((-m) >> ita.FB)
+    e = ita.exp2_fixed(torch.clamp(t - (be << ita.FB), min=neg))
+    p8 = torch.clamp(e >> 1, max=127)
+    av = _int_dot(p8, v_cache8)                    # [B, Hkv, group, D]
+    den = torch.clamp(p8.sum(dim=-1, keepdim=True, dtype=torch.int32), min=1)
+    y = av.float() / den.float() * KV_SCALE
+    return y.reshape(b, hq, 1, d).to(q.dtype)
 
 
 def _quantize_static(x: torch.Tensor, scale: float) -> torch.Tensor:

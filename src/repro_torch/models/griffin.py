@@ -158,7 +158,7 @@ def _mlp_res(x, p, cfg: ModelConfig):
 def _local_attention(x, p, cfg: ModelConfig, positions):
     """Prefill local attention: the residual and this layer's k, v."""
     h = nn.rms_norm(x, p["ln1"])
-    q, k, v = dense._project_qkv(h, p, cfg, positions)
+    q, k, v = dense._project_qkv(h, dense._float_lin(p), cfg, positions)
     o = attn.chunked_attention(q, k, v, causal=True, window=cfg.local_window,
                                chunk_q=min(cfg.attn_chunk_q, x.shape[1]))
     return x + nn.dense(dense._merge_heads(o), p["wo"]), k, v

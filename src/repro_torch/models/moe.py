@@ -14,9 +14,11 @@ The family keeps float weights (the W8A8 path is the dense family's) but
 stores K/V in int8 blocks on ``serve_quant`` archs, as the dense family
 does; its arena entry points (``forward``, ``init_cache``, ``prefill``,
 ``decode_step``) are the dense family's scaffolds with this family's
-layers, float caches only, as there. It defines no ``quantize_params``
-and takes no right-padded prompts: pad tokens would enlarge the routing
-capacity and could change which real tokens overflow. The expert
+layers, with the dense family's int8 K/V arena step (requantized
+writes, ``decode_attention_int8``) on ``serve_quant`` archs. It defines
+no ``quantize_params`` and takes no right-padded prompts: pad tokens
+would enlarge the routing capacity and could change which real tokens
+overflow. The expert
 products are plain batched matrix products over the full ``[B, E, C,
 D]`` dispatch buffer, as in the reference (which computes them outside
 any Pallas kernel).
@@ -183,10 +185,11 @@ def forward(params, tokens, cfg: ModelConfig, *, embeds=None):
 init_cache = dense.init_cache
 
 
-def _decode_layer(x, p, c, kind, cfg: ModelConfig, pos):
-    """One-token arena decode through one layer; each row is its own
-    routing group of one token."""
-    x = dense._decode_attention(x, p, c, kind, cfg, pos)
+def _decode_layer(x, p, c, kind, cfg: ModelConfig, pos, *, qparams=None):
+    """One-token arena decode through one layer (float weights; int8 K/V
+    and the ITA integer attention under ``serve_quant``); each row is its
+    own routing group of one token."""
+    x = dense._decode_attention(x, p, c, kind, cfg, pos, dense._float_lin(p))
     return _ffn(x, p, cfg)
 
 
@@ -194,9 +197,9 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, *, qparams=None,
                 embeds=None):
     """One arena decode step (the dense family's ``decode_step`` contract).
     ``qparams`` is ignored, as in the reference: the family serves float
-    weights; its int8 K/V step (``serve_quant``) is refused."""
+    weights; under ``serve_quant`` its K/V writes requantize and its
+    attention is ``decode_attention_int8``, as the dense family's."""
     del qparams
-    dense._refuse_int8_arena(cfg, None)
     return dense._decode_impl(params, cache, tokens, cfg,
                               layer_fn=_decode_layer, embeds=embeds)
 

@@ -88,8 +88,8 @@ class Arch:
         (recurrent state has no KV cache to page): ``("slot", "arena",
         "paged")`` for the dense, vlm-dense and moe families, ``("slot",
         "arena")`` for ssm and hybrid. A ``serve_quant`` dense or moe arch
-        lists ``slot`` and ``arena`` too; ``make_backend`` refuses them
-        there, since their int8 arena step is not ported."""
+        serves on all three (the int8 arena step on ``slot`` and
+        ``arena``)."""
         out = []
         if self.decode_step is not None and self.prefill is not None:
             out += ["slot", "arena"]

@@ -11,10 +11,13 @@ a per-slot KV cache ``{"stacks": [{"k", "v"}], "tail": [...], "len"}``
 with leaves ``[n_stack, B, Hkv, S_len, hd]``, where a sliding-window ("L")
 layer keeps a ring of ``S_len = min(local_window, max_len)`` rows
 (position ``p`` at row ``p % S_len``). ``decode_step`` writes into the
-cache it is given, in place. The float path only: the reference's
-``serve_quant`` arena step (int8 K/V, the ITA integer
-``decode_attention_int8``, W8A8 ``qparams``) is not ported, and
-``decode_step`` refuses it by name. Tail layers are written through the
+cache it is given, in place. Under ``serve_quant`` (the reference's
+int8 arena step) every write requantizes K/V (``cache.quantize_kv``),
+so the cache holds int8 integers (in the compute dtype on the serving
+arena, as in the reference), and decode attends them through the ITA
+integer ``attention.decode_attention_int8``; with ``qparams`` the seven
+decode projections are W8A8 (``_qlin``, kernel B3 on the card), and
+prefill keeps the float ones. Tail layers are written through the
 same in-place views as the stacked ones, so their cache keeps the
 ``[1, B, Hkv, S_len, hd]`` shape that ``init_cache`` gives it (the
 reference's ``prefill`` drops the leading axis there, ROADMAP Queue C).
@@ -114,16 +117,47 @@ def _entry(tree, where, g):
 
 
 # ---------------------------------------------------------------------------
-# Float (prefill) layer
+# Projections and the layers' shared halves
 # ---------------------------------------------------------------------------
 
 
-def _project_qkv(x, p, cfg: ModelConfig, positions):
+def _qlin(qp, name, y):
+    """Quantized linear for the int8 serving path (static activation scale)."""
+    from repro_torch.kernels.int8_gemm.ops import int8_gemm
+
+    y8 = torch.clamp(torch.round(y.float() * recip32(attn.ACT_SCALE)),
+                     -127, 127).to(torch.int8)
+    out8 = int8_gemm(y8, qp[name])
+    return (out8.float() * attn.ACT_SCALE).to(y.dtype)
+
+
+def _float_lin(p):
+    """The float projections of a layer, as ``_qlin`` is called."""
+    return lambda name, y: nn.dense(y, p[name])
+
+
+def _lin_for(p, qparams):
+    """The layer's projections: W8A8 with ``qparams``, else float."""
+    return (functools.partial(_qlin, qparams) if qparams is not None
+            else _float_lin(p))
+
+
+def _lin_mlp(x, p, cfg: ModelConfig, lin):
+    """x plus the gated MLP of ``rms_norm(x)`` through ``lin``."""
+    h = nn.rms_norm(x, p["ln2"])
+    act = nn.ACTIVATIONS[cfg.act]
+    return x + lin("wd", act(lin("wg", h), lin("wu", h)))
+
+
+def _project_qkv(x, lin, cfg: ModelConfig, positions):
+    """q, k, v ([B, H, S, hd]) of ``x`` [B, S, D] through the projections
+    ``lin`` (``_float_lin`` or the W8A8 ``_qlin``), RoPE at
+    ``positions``."""
     b, s, _ = x.shape
     hd = cfg.hd
-    q = nn.dense(x, p["wq"]).reshape(b, s, cfg.n_heads, hd).transpose(1, 2)
-    k = nn.dense(x, p["wk"]).reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
-    v = nn.dense(x, p["wv"]).reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
+    q = lin("wq", x).reshape(b, s, cfg.n_heads, hd).transpose(1, 2)
+    k = lin("wk", x).reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
+    v = lin("wv", x).reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
     q = nn.rope(q, positions, cfg.rope_theta)
     k = nn.rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -132,12 +166,6 @@ def _project_qkv(x, p, cfg: ModelConfig, positions):
 def _merge_heads(o):
     b, h, s, hd = o.shape
     return o.transpose(1, 2).reshape(b, s, h * hd)
-
-
-def _mlp(x, p, cfg: ModelConfig):
-    act = nn.ACTIVATIONS[cfg.act]
-    h = act(nn.dense(x, p["wg"]), nn.dense(x, p["wu"]))
-    return nn.dense(h, p["wd"])
 
 
 def _prefill_layer(xc, p, kind: str, cfg: ModelConfig, positions, *,
@@ -151,8 +179,7 @@ def _prefill_layer(xc, p, kind: str, cfg: ModelConfig, positions, *,
     and window masks bind by absolute position."""
     xc, k, v = _prefill_attention(xc, p, kind, cfg, positions,
                                   kv_prefix=kv_prefix)
-    xc = xc + _mlp(nn.rms_norm(xc, p["ln2"]), p, cfg)
-    return xc, k, v
+    return _lin_mlp(xc, p, cfg, _float_lin(p)), k, v
 
 
 def _prefill_attention(xc, p, kind: str, cfg: ModelConfig, positions, *,
@@ -160,7 +187,7 @@ def _prefill_attention(xc, p, kind: str, cfg: ModelConfig, positions, *,
     """The attention half of a prefill layer, shared with the moe family:
     returns (x plus the attention output, this layer's k, v)."""
     h = nn.rms_norm(xc, p["ln1"])
-    q, k, v = _project_qkv(h, p, cfg, positions)
+    q, k, v = _project_qkv(h, _float_lin(p), cfg, positions)
     ka, va, q_off = k, v, 0
     if kv_prefix is not None:
         kp, vp = kv_prefix
@@ -271,31 +298,36 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     return cache
 
 
-def _refuse_int8_arena(cfg: ModelConfig, qparams) -> None:
-    if cfg.serve_quant or qparams is not None:
-        raise NotImplementedError(
-            f"arch {cfg.name!r}: the int8 arena decode step (serve_quant: "
-            f"int8 K/V through decode_attention_int8, W8A8 qparams) is not "
-            f"ported to repro_torch yet (ROADMAP item 14b); set "
-            f"serve_quant=False or serve on the paged backend")
-
-
-def _decode_attention(x, p, c, kind, cfg: ModelConfig, pos):
+def _decode_attention(x, p, c, kind, cfg: ModelConfig, pos, lin):
     """The attention half of a one-token arena decode layer, shared with
-    the moe family: k/v written at each row's position (a ring on "L"
-    layers, ``_cache_write``, in place), then attention over the slot's
-    cache; returns x plus the attention output."""
+    the moe family: q/k/v projected with ``lin``, k/v written at each
+    row's position (a ring on "L" layers, ``_cache_write``, in place),
+    then attention over the slot's cache; returns x plus the attention
+    output. Under ``serve_quant`` K/V are requantized before the write
+    and attended by the ITA integer ``decode_attention_int8`` (no window:
+    a ring holds only the window, and once it wraps every row is
+    valid)."""
+    from repro_torch.models.cache import quantize_kv
+
     h = nn.rms_norm(x, p["ln1"])
-    q, k, v = _project_qkv(h, p, cfg, pos[:, None, None])
-    _cache_write(c, k, v, pos, kind, cfg)
-    o = attn.decode_attention(q, c["k"], c["v"], pos + 1, ring=kind == "L")
-    return x + nn.dense(_merge_heads(o), p["wo"])
+    q, k, v = _project_qkv(h, lin, cfg, pos[:, None, None])
+    if cfg.serve_quant:
+        _cache_write(c, quantize_kv(k, attn.KV_SCALE),
+                     quantize_kv(v, attn.KV_SCALE), pos, kind, cfg)
+        o = attn.decode_attention_int8(q, c["k"], c["v"], pos + 1)
+    else:
+        _cache_write(c, k, v, pos, kind, cfg)
+        o = attn.decode_attention(q, c["k"], c["v"], pos + 1,
+                                  ring=kind == "L")
+    return x + lin("wo", _merge_heads(o))
 
 
-def _decode_layer(x, p, c, kind, cfg: ModelConfig, pos):
-    """One-token decode through one layer (float weights and cache)."""
-    x = _decode_attention(x, p, c, kind, cfg, pos)
-    return x + _mlp(nn.rms_norm(x, p["ln2"]), p, cfg)
+def _decode_layer(x, p, c, kind, cfg: ModelConfig, pos, *, qparams=None):
+    """One-token decode through one layer (W8A8 projections with
+    ``qparams``)."""
+    lin = _lin_for(p, qparams)
+    return _lin_mlp(_decode_attention(x, p, c, kind, cfg, pos, lin), p, cfg,
+                    lin)
 
 
 def decode_step(params, cache, tokens, cfg: ModelConfig, *, qparams=None,
@@ -303,22 +335,24 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, *, qparams=None,
     """One decode step: tokens [B] (or ``embeds`` [B, 1, D]) → ([B, V]
     logits, the cache written in place with ``len`` advanced by one).
     ``cache["len"]`` is a per-row position vector, so rows sit at their
-    own positions (the continuous-batching layout)."""
-    _refuse_int8_arena(cfg, qparams)
+    own positions (the continuous-batching layout). ``qparams``
+    (``quantize_params``) makes the projections W8A8; ``serve_quant``
+    makes the K/V writes and the attention integer."""
     return _decode_impl(params, cache, tokens, cfg, layer_fn=_decode_layer,
-                        embeds=embeds)
+                        qparams=qparams, embeds=embeds)
 
 
 def _decode_impl(params, cache, tokens, cfg: ModelConfig, *, layer_fn,
-                 embeds=None):
+                 qparams=None, embeds=None):
     """Shared arena decode-step scaffold (layer loop over ``layer_fn``,
-    logits, position advance)."""
+    each layer given its ``qparams`` entry, logits, position advance)."""
     x = _embed_in(params, None if tokens is None else tokens[:, None], cfg,
                   embeds)
     pos = _as_positions(cache["len"], x.shape[0])
     for kind, where, g in _layers(cfg):
+        qp = None if qparams is None else _entry(qparams, where, g)
         x = layer_fn(x, _entry(params, where, g), _entry(cache, where, g),
-                     kind, cfg, pos)
+                     kind, cfg, pos, qparams=qp)
     logits = _logits(params, x, cfg)
     cache["len"] = cache["len"] + 1
     return logits[:, 0], cache
@@ -465,21 +499,6 @@ def _paged_cache_write(c, k_new, v_new, pos, table, block_len: int,
     return c
 
 
-def _qlin(qp, name, y):
-    """Quantized linear for the int8 serving path (static activation scale)."""
-    from repro_torch.kernels.int8_gemm.ops import int8_gemm
-
-    y8 = torch.clamp(torch.round(y.float() * recip32(attn.ACT_SCALE)),
-                     -127, 127).to(torch.int8)
-    out8 = int8_gemm(y8, qp[name])
-    return (out8.float() * attn.ACT_SCALE).to(y.dtype)
-
-
-def _float_lin(p):
-    """The float projections of a layer, as ``_qlin`` is called."""
-    return lambda name, y: nn.dense(y, p[name])
-
-
 def _check_int8_pools(qparams, c) -> None:
     """W8A8 weights need int8 pools."""
     if qparams is not None and c["k"].dtype != torch.int8:
@@ -500,14 +519,8 @@ def _paged_decode_attention(x, p, c, kind, cfg: ModelConfig, pos, table,
     from repro_torch.models.cache import quantize_kv
 
     h = nn.rms_norm(x, p["ln1"])
-    b = x.shape[0]
-    hd = cfg.hd
     block_len = c["k"].shape[2]  # [num_blocks, Hkv, block_len, hd]
-    q = lin("wq", h).reshape(b, 1, cfg.n_heads, hd).transpose(1, 2)
-    k = lin("wk", h).reshape(b, 1, cfg.n_kv_heads, hd).transpose(1, 2)
-    v = lin("wv", h).reshape(b, 1, cfg.n_kv_heads, hd).transpose(1, 2)
-    q = nn.rope(q, pos[:, None, None], cfg.rope_theta)
-    k = nn.rope(k, pos[:, None, None], cfg.rope_theta)
+    q, k, v = _project_qkv(h, lin, cfg, pos[:, None, None])
 
     window = cfg.local_window if kind == "L" else None
     tbl, start = _resolve_paged_table(table, kind)
@@ -530,13 +543,9 @@ def _paged_decode_layer(x, p, c, kind, cfg: ModelConfig, pos, table, *,
                         qparams=None):
     """One-token decode through one layer against the paged pool."""
     _check_int8_pools(qparams, c)
-    lin = (functools.partial(_qlin, qparams) if qparams is not None
-           else _float_lin(p))
+    lin = _lin_for(p, qparams)
     x = _paged_decode_attention(x, p, c, kind, cfg, pos, table, lin)
-    h = nn.rms_norm(x, p["ln2"])
-    act = nn.ACTIVATIONS[cfg.act]
-    x = x + lin("wd", act(lin("wg", h), lin("wu", h)))
-    return x
+    return _lin_mlp(x, p, cfg, lin)
 
 
 def paged_decode_step(params, cache, tokens, cfg: ModelConfig, table, *,
@@ -612,16 +621,11 @@ def _paged_verify_attention(x, p, c, kind, cfg: ModelConfig, pos, table,
     from repro_torch.models.cache import quantize_kv
 
     h = nn.rms_norm(x, p["ln1"])
-    b, qlen = x.shape[:2]
-    hd = cfg.hd
+    qlen = x.shape[1]
     block_len = c["k"].shape[2]
-    q = lin("wq", h).reshape(b, qlen, cfg.n_heads, hd).transpose(1, 2)
-    k = lin("wk", h).reshape(b, qlen, cfg.n_kv_heads, hd).transpose(1, 2)
-    v = lin("wv", h).reshape(b, qlen, cfg.n_kv_heads, hd).transpose(1, 2)
     positions = pos[:, None] + torch.arange(qlen, dtype=torch.int32,
                                             device=pos.device)[None, :]
-    q = nn.rope(q, positions[:, None, :], cfg.rope_theta)
-    k = nn.rope(k, positions[:, None, :], cfg.rope_theta)
+    q, k, v = _project_qkv(h, lin, cfg, positions[:, None, :])
 
     window = cfg.local_window if kind == "L" else None
     tbl, start = _resolve_paged_table(table, kind)
@@ -648,13 +652,9 @@ def _paged_verify_layer(x, p, c, kind, cfg: ModelConfig, pos, table, *,
     repeats ``_paged_decode_layer``'s math (same write, and the verify
     attention's row 0 is exactly the decode mask)."""
     _check_int8_pools(qparams, c)
-    lin = (functools.partial(_qlin, qparams) if qparams is not None
-           else _float_lin(p))
+    lin = _lin_for(p, qparams)
     x = _paged_verify_attention(x, p, c, kind, cfg, pos, table, lin)
-    h = nn.rms_norm(x, p["ln2"])
-    act = nn.ACTIVATIONS[cfg.act]
-    x = x + lin("wd", act(lin("wg", h), lin("wu", h)))
-    return x
+    return _lin_mlp(x, p, cfg, lin)
 
 
 def paged_verify_step(params, cache, tokens, cfg: ModelConfig, table, *,

@@ -26,9 +26,11 @@ selected by ``EngineConfig.backend``:
 
 Which families serve on which backend is ``registry.Arch.serve_backends``:
 in the port every family serves on ``slot``/``arena``, and the dense and
-``moe`` families also on ``paged``. Not ported yet (refused with
-``NotImplementedError``): the dense and moe families' int8 arena step
-(``serve_quant`` archs on ``slot``/``arena``), and mesh sharding.
+``moe`` families also on ``paged``. On ``slot``/``arena`` a
+``serve_quant`` arch of those families runs the reference's int8 arena
+step (int8 K/V in the compute-dtype cache, the ITA integer
+``decode_attention_int8``, W8A8 projections for the dense families). Not
+ported yet (refused with ``NotImplementedError``): mesh sharding.
 """
 
 from __future__ import annotations
@@ -92,11 +94,6 @@ def sample_tokens_per_slot(logits: torch.Tensor, temps, topks, rids, steps,
     return out
 
 
-# families whose reference arena step changes under ``serve_quant`` (int8
-# K/V and ``decode_attention_int8``); the recurrent families ignore it
-INT8_ARENA_FAMILIES = ("dense", "vlm-dense", "moe")
-
-
 def _build_qparams(arch: registry.Arch, params):
     if arch.cfg.serve_quant and arch.quantize_params is not None and (
             arch.cfg.family in ("dense", "vlm-dense")):
@@ -127,6 +124,10 @@ class _BackendBase:
         self.qparams = _build_qparams(arch, params)
         self.decode_dispatches = 0
         self.transfers = 0
+
+    def _qkw(self):
+        """``qparams`` for a model step, when the backend built them."""
+        return {} if self.qparams is None else {"qparams": self.qparams}
 
     # -- protocol defaults -------------------------------------------------
 
@@ -202,8 +203,10 @@ class ArenaBackend(_BackendBase):
     (``_bucket_ok``); otherwise the exact prompt. Eager PyTorch has no
     trace to save, but the bucket sets ``chunked_attention``'s query
     chunk, so the port pads exactly where the reference does and its float
-    sums match. The decode takes the float parameters: the ``serve_quant``
-    step of the dense and moe families is refused in ``make_backend``.
+    sums match. Under ``serve_quant`` the cache stays in the compute
+    dtype, as the reference's does, and holds the requantized integers;
+    the decode passes ``qparams`` (W8A8, the dense families) when the
+    backend built them.
     """
 
     name = "arena"
@@ -224,8 +227,8 @@ class ArenaBackend(_BackendBase):
         return "L" not in cfg.pattern or bucket <= cfg.local_window
 
     def decode(self, active, slots, samp, any_sampling):
-        logits, self.cache = self.arch.decode_step(self.params, self.cache,
-                                                   self.last_tok)
+        logits, self.cache = self.arch.decode_step(
+            self.params, self.cache, self.last_tok, **self._qkw())
         tok = sample_tokens_per_slot(logits, *samp, self.ec.seed,
                                      any_sampling=any_sampling)
         # a copy: this iteration's admissions write their first token into
@@ -295,7 +298,7 @@ class SlotBackend(_BackendBase):
             last = torch.tensor([slots[slot].output[-1]], dtype=torch.int32,
                                 device=self.device)
             logits, self.caches[slot] = self.arch.decode_step(
-                self.params, self.caches[slot], last)
+                self.params, self.caches[slot], last, **self._qkw())
             self.decode_dispatches += 1
             out[slot] = int(torch.argmax(logits[0]))   # host sync (counted)
             self.transfers += 1
@@ -869,12 +872,4 @@ def make_backend(name: str, arch: registry.Arch, params, ec: EngineConfig,
             f"dense-arena entry points (prefill/decode_step/init_cache) in "
             f"repro_torch yet; it serves on "
             f"{', '.join(arch.serve_backends) or 'no backend'}")
-    if cls is not PagedBackend and cfg.serve_quant \
-            and cfg.family in INT8_ARENA_FAMILIES:
-        raise NotImplementedError(
-            f"backend={name!r}: arch {cfg.name!r} is quantized "
-            f"(serve_quant), and the {cfg.family!r} family's int8 arena "
-            f"step (int8 K/V through decode_attention_int8, the ITA integer "
-            f"softmax) is not ported to repro_torch yet; set "
-            f"serve_quant=False or use backend='paged'")
     return cls(arch, params, ec, device)

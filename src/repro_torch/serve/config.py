@@ -5,12 +5,11 @@
 and validation, with two differences:
 
 * ``backend`` defaults to ``"paged"``, where the reference's default is
-  ``"arena"``. Every ported family serves on ``"arena"`` and ``"slot"``
-  with float caches, but two pieces of the reference's arena are still
-  missing: the int8 arena step of the dense and ``moe`` families (their
-  ``serve_quant`` archs, the configs' default, are refused there), and
-  ``embeds`` requests. Until both are ported the default stays on the
-  backend that serves those archs; the ``ssm`` and ``hybrid`` families
+  ``"arena"``. Every ported family serves on ``"arena"`` and ``"slot"``,
+  quantized (``serve_quant``) dense, vlm-dense and ``moe`` archs too
+  (the reference's int8 arena step), but one piece of the reference's
+  arena is still missing: ``embeds`` requests. Until it is ported the
+  default stays on ``"paged"``; the ``ssm`` and ``hybrid`` families
   have to ask for ``"arena"`` or ``"slot"``.
 * there is no ``attn_backend`` — the port has no per-op backend ladder, the
   device decides which version of a kernel runs.

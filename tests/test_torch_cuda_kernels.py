@@ -32,7 +32,12 @@ attention are held at qwen3-moe-30b-a3b's geometry (a GQA group of 8, rows
 up to 4096 keys), and the moe family's paged steps and engine on
 ``qwen3-moe-30b-a3b-smoke`` agree with the CPU's. The dense and moe
 families' float arena and slot backends (plain PyTorch, no kernel) on the
-card agree with the CPU's arena.
+card agree with the CPU's arena. The int8 arena step: the GEMM bit-exact at
+M = 1 on glm4-9b's projection shapes (the slot backend's batch-1 decode),
+``decode_attention_int8`` on the card equal to it on the CPU bit for bit
+(its products run in float64 on both), and the int8 arena and slot engines
+on the card agreeing with the CPU's arena, launching the GEMM seven times a
+layer and step (dense) or no kernel (moe).
 """
 
 import dataclasses
@@ -864,6 +869,90 @@ def test_float_arena_serving_on_card_agrees_with_cpu_and_slot(cuda_device,
         eng.run_until_drained()
         outs[device, backend] = [eng.request(h).output for h in hs]
     assert {k.name: k.launches for k in build.all_kernels()} == before
+    assert outs["cuda", "slot"] == outs["cuda", "arena"]
+    same = sum(a == b for x, y in zip(outs["cuda", "arena"],
+                                      outs["cpu", "arena"])
+               for a, b in zip(x, y))
+    assert same >= 0.9 * 72, outs
+
+
+@pytest.mark.parametrize("activation", ["none", "relu", "gelu"])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 256), (4096, 13696),
+                                 (13696, 4096)],
+                         ids=["wq-wo", "wk-wv", "wg-wu", "wd"])
+def test_int8_gemm_m1_at_glm4_projections(cuda_device, activation, k, n):
+    """M = 1, the slot backend's batch-1 int8 decode, at each of glm4-9b's
+    projection shapes."""
+    _gemm_case(_gemm_operands(1, k, n, 3 * k + n, cuda_device), activation)
+
+
+@pytest.mark.parametrize("geometry,dtype", [
+    ("glm4-9b", torch.bfloat16), ("glm4-9b", torch.float32),
+    ("gemma3-4b", torch.bfloat16)], ids=["glm4-bf16", "glm4-f32",
+                                         "gemma3-ring-bf16"])
+def test_decode_attention_int8_card_equals_cpu(cuda_device, geometry, dtype):
+    """glm4-9b's arena decode (8 rows, 32 / 2 heads of 128, a 1024-row cache,
+    lens 1–1024, the last row's logits all equal so Σp8 is at its largest)
+    and gemma3-4b's ring layers (8 / 4 heads of 256 over a 1024-row ring,
+    rows wrapped past it), caches holding the integers in ``dtype``."""
+    from repro_torch.models.attention import decode_attention_int8
+
+    cfg = configs.get_config(geometry)
+    g = torch.Generator().manual_seed(7)
+    b, s = 8, 1024
+    q = torch.randn((b, cfg.n_heads, 1, cfg.hd), generator=g) * 2
+    k = torch.randint(-127, 128, (b, cfg.n_kv_heads, s, cfg.hd),
+                      generator=g).float()
+    v = torch.randint(-127, 128, (b, cfg.n_kv_heads, s, cfg.hd),
+                      generator=g).float()
+    k[-1] = 0
+    lens = torch.tensor([1, 17, 130, 255, 512, 777, 1000, 1024] if
+                        geometry == "glm4-9b" else
+                        [1, 300, 1023, 1024, 1025, 1500, 2900, 3000],
+                        dtype=torch.int32)
+    args = [t.to(dtype) for t in (q, k, v)] + [lens]
+    want = decode_attention_int8(*args)
+    got = decode_attention_int8(*(t.to(cuda_device) for t in args))
+    assert got.dtype == dtype and bool(torch.isfinite(want).all())
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("name", ["glm4-9b", "qwen3-moe-30b-a3b"])
+def test_int8_arena_serving_on_card_agrees_with_cpu_and_slot(cuda_device,
+                                                             name):
+    """The dense and moe families' smoke configs under ``serve_quant``
+    (float32: the int8 arena step) through the arena and the slot backend
+    on the card and the arena on the CPU: on the card slot == arena, card
+    vs CPU the same greedy tokens up to near-ties; on the card the dense
+    family launches the GEMM seven times a layer and decode step, the moe
+    family no kernel."""
+    from repro_torch.models import registry
+    from repro_torch.serve import EngineConfig, LLMEngine
+
+    cfg = dataclasses.replace(configs.smoke_config(name), dtype="float32")
+    assert cfg.serve_quant
+    arch = registry.build(cfg)
+    npp = bridge.numpy_params(arch.schema(), seed=0)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(3, 40)))
+               .astype(np.int32) for _ in range(6)]
+    outs = {}
+    for device, backend in (("cuda", "arena"), ("cuda", "slot"),
+                            ("cpu", "arena")):
+        before = {k.name: k.launches for k in build.all_kernels()}
+        eng = LLMEngine(arch, bridge.params_from_numpy(npp, device),
+                        EngineConfig(backend=backend, slots=4, max_len=64,
+                                     admit_window=2), device=device)
+        hs = [eng.add_request(p, max_new_tokens=12) for p in prompts]
+        eng.run_until_drained()
+        outs[device, backend] = [eng.request(h).output for h in hs]
+        launched = {k.name: k.launches - before[k.name]
+                    for k in build.all_kernels()}
+        want = {k: 0 for k in launched}
+        if device == "cuda" and arch.quantize_params is not None:
+            want["int8_gemm"] = (len(transformer.LINEARS) * cfg.n_layers
+                                 * eng.backend.decode_dispatches)
+        assert launched == want, (device, backend, launched)
     assert outs["cuda", "slot"] == outs["cuda", "arena"]
     same = sum(a == b for x, y in zip(outs["cuda", "arena"],
                                       outs["cpu", "arena"])

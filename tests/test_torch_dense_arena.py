@@ -18,8 +18,11 @@ preemptions and every metric not read off the host clock on
 in decode), with length-bucketed admission on and off, under the
 ``bounded`` (with a forced preemption) and ``fcfs`` schedulers. Seeded
 sampled rows are reproducible; the port's arena gives its own paged
-backend's greedy tokens; a ``serve_quant`` arch is refused on ``arena`` and
-``slot`` by name.
+backend's greedy tokens; a ``serve_quant`` arch (glm4-9b, and
+llava-next-34b on token prompts) serves on ``arena`` and ``slot`` with the
+JAX engines' streams (the int8 arena step; its own files are
+``test_torch_int8_arena.py``, ``test_torch_moe_int8_arena.py`` and
+``test_torch_ring_int8_arena.py``).
 
 A config with a tail layer is anchored on the port's own ``forward``, not
 on the JAX arena: the reference's dense ``prefill`` writes a tail layer's
@@ -44,9 +47,7 @@ import torch
 from repro.models.cache import cache_insert as jcache_insert
 from repro.serve import EngineConfig as JEngineConfig
 from repro.serve import LLMEngine as JEngine
-from repro_torch import bridge
 from repro_torch import configs as tconfigs
-from repro_torch.models import registry as tregistry
 from repro_torch.models.cache import cache_insert as tcache_insert
 from repro_torch.serve import EngineConfig, LLMEngine
 
@@ -174,8 +175,8 @@ def test_prefill_true_len_and_embeds_allclose(name):
 
 def test_prefill_requantizes_under_serve_quant():
     """A ``serve_quant`` arch's prefill stores the requantized integers in
-    its float cache, as the reference's does; its decode step (the ITA
-    integer attention) is refused by name."""
+    its float cache, as the reference's does; its decode step (W8A8
+    projections, the ITA integer attention) follows the reference's."""
     jarch, jparams, tarch, tparams = setup_pair("glm4-9b", True)
     t = tokens(tarch.cfg.vocab, 12, seed=5)[None]
     jl, jc = jax.jit(jarch.prefill, static_argnums=2)(
@@ -185,9 +186,14 @@ def test_prefill_requantizes_under_serve_quant():
     tree_close(tc, jc)
     k = tc["stacks"][0]["k"]
     assert k.dtype == torch.float32 and torch.equal(k, k.round())
-    with pytest.raises(NotImplementedError,
-                       match="serve_quant.*decode_attention_int8"):
-        tarch.decode_step(tparams, tc, torch.zeros(1, dtype=torch.int32))
+    tok = jnp.argmax(jl, axis=-1).astype(jnp.int32)
+    jd, jc = jax.jit(jarch.decode_step)(jparams, jc, tok,
+                                        qparams=jarch.quantize_params(jparams))
+    td, tc = tarch.decode_step(tparams, tc, torch.from_numpy(np.array(tok)),
+                               qparams=tarch.quantize_params(tparams))
+    close(td, jd, "decode logits")
+    tree_close(tc, jc)
+    assert torch.equal(k, k.round())
 
 
 @pytest.mark.parametrize("quantized", [False, True])
@@ -216,17 +222,20 @@ def prompts_for(vocab, n=6, seed=1):
 
 
 def identity_cell(name, backend, buckets, scheduler, max_new=10,
-                  **overrides):
+                  quant=False, engine=None, **overrides):
     """The port and the JAX engine serve the same prompts on ``backend``:
-    equal streams, preemptions and shared metrics. Returns the port's
-    requests."""
-    jarch, jparams, tarch, tparams = setup_pair(name, False, **overrides)
-    kw = dict(ENGINE_KW, backend=backend, scheduler=scheduler,
+    equal streams, preemptions and shared metrics (``quant``: the
+    ``serve_quant`` arch, W8A8 where the family quantizes its weights;
+    ``engine`` replaces ``ENGINE_KW``). Returns the port's requests."""
+    jarch, jparams, tarch, tparams = setup_pair(name, quant, **overrides)
+    kw = dict(engine or ENGINE_KW, backend=backend, scheduler=scheduler,
               prefill_buckets=buckets)
     je = JEngine(jarch, jparams, JEngineConfig(**kw))
     if backend == "arena":  # the slot backend syncs to the host a token
         sync_reference_decode(je)
     te = LLMEngine(tarch, tparams, EngineConfig(**kw), device="cpu")
+    assert (te.qparams is not None) == (
+        quant and tarch.quantize_params is not None)
     prompts = prompts_for(tarch.cfg.vocab)
     jh = [je.add_request(p, max_new_tokens=max_new) for p in prompts]
     th = [te.add_request(p, max_new_tokens=max_new) for p in prompts]
@@ -369,23 +378,16 @@ def test_tail_config_prefill_cache_has_init_cache_shapes():
     assert cache["len"].tolist() == [21]
 
 
+# two slots, a shorter max_len: a smaller arena than the int8 files' cells
+SMALL_ENGINE = dict(slots=2, max_len=48, admit_window=1)
+
+
 @pytest.mark.parametrize("backend", ["arena", "slot"])
 @pytest.mark.parametrize("name", ["glm4-9b", "llava-next-34b"])
-def test_serve_quant_refused_on_arena_and_slot(name, backend):
-    """Refused by name in ``make_backend``, before any weight is read (the
-    engine gets no parameters at all); the paged backend is unchanged."""
-    cfg = dataclasses.replace(tconfigs.smoke_config(name), dtype="float32")
-    arch = tregistry.build(cfg)
-    assert cfg.serve_quant
-    assert arch.serve_backends == ("slot", "arena", "paged")
-    with pytest.raises(NotImplementedError) as got:
-        LLMEngine(arch, {}, EngineConfig(backend=backend), device="cpu")
-    msg = str(got.value)
-    for word in ("serve_quant", "decode_attention_int8", f"{cfg.family!r}",
-                 "serve_quant=False", "backend='paged'"):
-        assert word in msg, (word, msg)
-    params = bridge.params_from_numpy(bridge.numpy_params(arch.schema(), 0),
-                                      "cpu")
-    eng = LLMEngine(arch, params, EngineConfig(backend="paged"),
-                    device="cpu")
-    assert eng.backend.name == "paged" and eng.qparams is not None
+def test_serve_quant_serves_on_arena_and_slot(name, backend):
+    """The configs' default ``serve_quant`` (the int8 arena step, W8A8
+    weights built by the backend) on two slots: the JAX engines'
+    streams."""
+    assert tconfigs.smoke_config(name).serve_quant
+    identity_cell(name, backend, True, "fcfs", max_new=6, quant=True,
+                  engine=SMALL_ENGINE)

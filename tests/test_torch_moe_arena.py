@@ -16,10 +16,11 @@ engines' under the ``bounded`` (with a forced preemption) and ``fcfs``
 schedulers, with ``prefill_buckets`` on and off (the family prefills the
 exact prompt either way: pad tokens would change the routing capacity);
 the port's arena gives its own paged backend's greedy tokens; a
-``serve_quant`` arch is refused on ``arena`` and ``slot`` by name.
+``serve_quant`` arch (int8 K/V beside the float weights) serves on
+``arena`` and ``slot`` with the JAX engines' streams
+(``test_torch_moe_int8_arena.py`` holds that step's own cells).
 """
 
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -27,16 +28,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import bridge
 from repro_torch import configs as tconfigs
 from repro_torch.models import moe as tmoe
-from repro_torch.models import registry as tregistry
 from repro_torch.models import transformer as tdense
 from repro_torch.serve import EngineConfig, LLMEngine
 
 from test_torch_dense_arena import (
-    ENGINE_KW, check_prefill_and_decode, close, identity_cell, prompts_for,
-    tokens, tree_close,
+    ENGINE_KW, SMALL_ENGINE, check_prefill_and_decode, close, identity_cell,
+    prompts_for, tokens, tree_close,
 )
 from test_torch_serve import setup_pair
 
@@ -120,16 +119,11 @@ def test_arena_matches_own_paged_backend():
 
 
 @pytest.mark.parametrize("backend", ["arena", "slot"])
-def test_serve_quant_refused_on_arena_and_slot(backend):
-    cfg = dataclasses.replace(tconfigs.smoke_config(NAME), dtype="float32")
-    arch = tregistry.build(cfg)
-    assert cfg.serve_quant
-    assert arch.serve_backends == ("slot", "arena", "paged")
-    with pytest.raises(NotImplementedError,
-                       match=r"serve_quant.*'moe'.*decode_attention_int8"):
-        LLMEngine(arch, {}, EngineConfig(backend=backend), device="cpu")
-    params = bridge.params_from_numpy(bridge.numpy_params(arch.schema(), 0),
-                                      "cpu")
-    with pytest.raises(NotImplementedError, match="serve_quant"):
-        arch.decode_step(params, arch.init_cache(1, 16, device="cpu"),
-                         torch.zeros(1, dtype=torch.int32))
+def test_serve_quant_serves_on_arena_and_slot(backend, dropped):
+    """The configs' default ``serve_quant`` (float weights, int8 K/V and
+    the ITA integer decode attention) on two slots: the JAX engines'
+    streams, with routing slots dropped at 1.25."""
+    assert tconfigs.smoke_config(NAME).serve_quant
+    identity_cell(NAME, backend, True, "fcfs", max_new=6, quant=True,
+                  engine=SMALL_ENGINE)
+    assert sum(dropped) > 0

@@ -15,9 +15,11 @@ says otherwise:
   (``test_torch_moe_prefix.py`` and ``test_torch_moe_chunked.py``, which
   share ``identity_cell``; split so that each file takes about a minute).
 
-The family's float arena and slot paths are held to the reference in
-``test_torch_moe_arena.py``; its int8 arena step is not ported, so a
-``serve_quant`` arch is refused on ``arena`` and ``slot`` by name.
+The family's arena and slot paths are held to the reference in
+``test_torch_moe_arena.py`` (float caches) and
+``test_torch_moe_int8_arena.py`` (the int8 arena step); here a
+``serve_quant`` arch serves two short prompts on each beside the JAX
+engine.
 """
 
 import pytest
@@ -30,7 +32,10 @@ from repro_torch.models import moe as tmoe
 from repro_torch.serve import EngineConfig, LLMEngine
 
 from test_torch_chunked import shared_metrics_equal
-from test_torch_serve import serve_both, setup_pair, sync_reference_decode
+from test_torch_serve import (
+    serve_both, serve_quant_beside_reference, setup_pair,
+    sync_reference_decode,
+)
 from test_torch_spec import (
     assert_frontier_blocks, assert_partition, spec_identity_cell,
 )
@@ -101,15 +106,5 @@ def test_spec_identity_with_reference(k, quant, prefix):
 
 
 @pytest.mark.parametrize("backend", ["arena", "slot"])
-def test_non_paged_backends_refused_by_name(backend):
-    _, _, qarch, qparams = setup_pair(NAME, True)
-    with pytest.raises(NotImplementedError,
-                       match=r"serve_quant.*'moe'.*decode_attention_int8"):
-        LLMEngine(qarch, qparams, EngineConfig(backend=backend),
-                  device="cpu")
-    _, _, tarch, tparams = setup_pair(NAME, False)
-    eng = LLMEngine(tarch, tparams, EngineConfig(backend=backend),
-                    device="cpu")
-    h = eng.add_request([5, 6, 7], max_new_tokens=3)
-    eng.run_until_drained()
-    assert len(eng.request(h).output) == 3
+def test_non_paged_backends_serve_quant(backend):
+    serve_quant_beside_reference(NAME, backend)

@@ -4,7 +4,9 @@ Greedy token identity of the port's ``LLMEngine`` with the JAX
 ``LLMEngine(backend="paged")`` on the dense smoke configs (float32), under
 the ``bounded`` scheduler (with a forced preemption) and ``fcfs``; model
 level ``paged_prefill`` / ``paged_decode_step`` / ``paged_verify_step``
-(the speculative verify pass) logits at allclose; the sampling contract; and the settings the port refuses by name.
+(the speculative verify pass) logits at allclose; the sampling contract;
+a ``serve_quant`` arch on ``slot`` and ``arena`` (the int8 arena step)
+beside the JAX engine; and the settings the port refuses by name.
 
 Both engines get the same numpy weights (``repro_torch.bridge``). Every
 JAX backend dispatch that reads host state is made to finish before the
@@ -232,22 +234,30 @@ def test_sampling_is_a_function_of_seed_rid_and_index():
     assert [greedy[r] for r in (1, 3)] != [mixed[r] for r in (1, 3)]
 
 
-@pytest.mark.parametrize("setting,kw", [
-    ("backend", dict(backend="slot")),
-    ("backend", dict(backend="arena")),
-])
-def test_unported_settings_raise_by_name(setting, kw):
-    """The int8 arena step is not ported: a ``serve_quant`` arch is refused
-    on ``slot`` and ``arena`` by name, and the float arch serves there."""
-    _, _, qarch, qparams = setup_pair("glm4-9b", True)
-    with pytest.raises(NotImplementedError,
-                       match=f"{setting}.*serve_quant.*decode_attention_int8"):
-        LLMEngine(qarch, qparams, EngineConfig(**kw), device="cpu")
-    _, _, tarch, tparams = setup_pair("glm4-9b", False)
-    eng = LLMEngine(tarch, tparams, EngineConfig(**kw), device="cpu")
-    h = eng.add_request([5, 6, 7], max_new_tokens=3)
-    eng.run_until_drained()
-    assert len(eng.request(h).output) == 3
+def serve_quant_beside_reference(name, backend):
+    """A ``serve_quant`` arch on ``backend`` (``slot`` or ``arena``, the
+    int8 arena step) serves two short prompts with the JAX engine's greedy
+    tokens, the backend's W8A8 weights built where the family has them."""
+    jarch, jparams, tarch, tparams = setup_pair(name, True)
+    kw = dict(backend=backend, slots=2, max_len=32)
+    je = JEngine(jarch, jparams, JEngineConfig(**kw))
+    if backend == "arena":
+        sync_reference_decode(je)
+    te = LLMEngine(tarch, tparams, EngineConfig(**kw), device="cpu")
+    assert (te.qparams is not None) == (tarch.quantize_params is not None)
+    prompts = [[5, 6, 7], [9, 4, 1, 8, 2]]
+    jh = [je.add_request(p, max_new_tokens=5) for p in prompts]
+    th = [te.add_request(p, max_new_tokens=5) for p in prompts]
+    je.run_until_drained()
+    te.run_until_drained()
+    assert [te.request(h).output for h in th] == \
+        [je.request(h).output for h in jh]
+    assert all(len(te.request(h).output) == 5 for h in th)
+
+
+@pytest.mark.parametrize("backend", ["slot", "arena"])
+def test_serve_quant_serves_on_slot_and_arena(backend):
+    serve_quant_beside_reference("glm4-9b", backend)
 
 
 def test_mesh_and_ring_layouts_raise_by_name():

@@ -147,9 +147,8 @@ def test_backend_refusals_name_the_family(pair):
     assert tarch.serve_backends == ("slot", "arena")
     with pytest.raises(ValueError, match="'ssm'.*'M'"):
         LLMEngine(tarch, tparams, EngineConfig(backend="paged"), device="cpu")
-    # a quantized dense arch serves on every backend but is refused on the
-    # arena and slot ones by name (their int8 step is not ported); the
-    # float arch serves there
+    # a dense arch serves on every backend, quantized (the int8 arena step,
+    # W8A8 weights built by the backend) or float
     dense = tregistry.build(dataclasses.replace(
         tconfigs.smoke_config("glm4-9b"), dtype="float32"))
     assert dense.cfg.serve_quant
@@ -159,10 +158,9 @@ def test_backend_refusals_name_the_family(pair):
     dense_f = tregistry.build(dataclasses.replace(dense.cfg,
                                                   serve_quant=False))
     for backend in ("arena", "slot"):
-        with pytest.raises(NotImplementedError,
-                           match="'dense'.*decode_attention_int8"):
-            LLMEngine(dense, dparams, EngineConfig(backend=backend),
-                      device="cpu")
+        eng = LLMEngine(dense, dparams, EngineConfig(backend=backend),
+                        device="cpu")
+        assert eng.backend.name == backend and eng.qparams is not None
         assert LLMEngine(dense_f, dparams, EngineConfig(backend=backend),
                          device="cpu").backend.name == backend
     # the greedy-only reference refuses a sampling request, and a
