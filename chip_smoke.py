@@ -82,7 +82,7 @@ non-zero on failure; none is caught):
    with its 16-row rings, float32) the arena's greedy tokens on the card
    against the CPU's, the slot backend's equal to the arena's and the
    paged backend's (float32 pools) against the arena's, with no kernel
-   launched by the arena and slot runs; at full width 16 requests x 32
+   launched by the arena and slot runs; at full width 8 requests x 16
    tokens of 64–512-token prompts through ``LLMEngine(backend="arena")``
    with bf16 caches (8 slots, ``max_len`` 1024, length-bucketed
    admission): token counts, finite logits, no kernel launched, the
@@ -95,7 +95,7 @@ non-zero on failure; none is caught):
    gemma3-4b-smoke, llava-next-34b-smoke on token prompts; float32) the
    arena's greedy tokens on the card against the CPU's, slot == arena on
    the card, the GEMM launched seven times a layer and decode step and
-   nothing else; at full width the same 16 x 32 run with bf16 weights and
+   nothing else; at full width the same 8 x 16 run with bf16 weights and
    int8 ``qparams``: token counts, finite logits, the GEMM launched exactly
    280 times a decode step (prefill none) and every other counter at 0,
    the admissions by bucket, tokens/s, the iteration p50 and one profiled
@@ -165,7 +165,26 @@ non-zero on failure; none is caught):
    phase 3's checks and readings; then the int8 arena step the same way
    (small input: qwen3-moe-30b-a3b-smoke under ``serve_quant``; full width:
    8 requests x 16 tokens, float weights, int8 K/V, no hand-written kernel
-   launched).
+   launched);
+9. serve full-width whisper-small (random bf16 weights: 12 encoder and 12
+   decoder layers, 12 heads of 64, 1500 frames, ``max_len`` 448), every
+   request carrying its own frame embeddings (``embeds``), through
+   ``LLMEngine(backend="paged")`` on int8 and bf16 pools: 16 requests x
+   32 tokens of 4–64-token decoder prompts, spec 4 with the prefix cache
+   on 4 clips of 4 requests sharing a 32-token decoder prefix, and 8 x 16
+   of the plain workload chunked by 16; check every request finishes with its
+   token count and finite logits, each decode step launches B2 (B1) and
+   each verify step B5 (B4) exactly once a layer and nothing else, and
+   the spec run hits the prefix cache; time steady 8-slot decode steps
+   and profile one decode and one verify step, each bit-equal to an
+   unprofiled one with the attention kernel listed once a layer; then the
+   arena with bf16 caches, float and ``serve_quant``, 8 x 16 with no
+   kernel launched, and ``slot`` == arena on 2 x 8 tokens; before it, on
+   small inputs (whisper-small-smoke: paged float32 and int8 pools, arena
+   float and int8, slot; llava-next-34b-smoke with embeds requests on the
+   arena) the card's greedy tokens against the CPU's. Phase 2 holds B1,
+   B2, B4 and B5 at whisper-small's geometry (12 query heads on 12 kv
+   heads of 64, a GQA group of 1; 8 rows of lens 0–448).
 
 Every ``torch.profiler`` session keeps host-idle margins inside both ends
 (``profiled``): in a few sessions in a hundred the profiler places the
@@ -1449,18 +1468,20 @@ def shared_prefix_prompts(vocab, n_requests, seed):
 
 
 def serve(torch, arch, params, prompts, slots, max_new, max_len=None,
-          **engine_kw):
+          embeds=None, **engine_kw):
     from repro_torch.kernels.build import all_kernels
     from repro_torch.serve import EngineConfig, LLMEngine, metrics
 
     eng = LLMEngine(arch, params, EngineConfig(
-        slots=slots, max_len=max_len or 512 + max_new, admit_window=2,
-        scheduler="bounded", block_len=16, **engine_kw))
+        backend="paged", slots=slots, max_len=max_len or 512 + max_new,
+        admit_window=2, scheduler="bounded", block_len=16, **engine_kw))
     for k in all_kernels():
         k.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    handles = [eng.add_request(p, max_new_tokens=max_new) for p in prompts]
+    handles = [eng.add_request(p, max_new_tokens=max_new,
+                               embeds=None if embeds is None else embeds[i])
+               for i, p in enumerate(prompts)]
     done = eng.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1511,22 +1532,25 @@ def serve(torch, arch, params, prompts, slots, max_new, max_len=None,
 
 
 def decode_steps(torch, arch, params, slots, reps=25, prompt_len=200,
-                 max_len=512):
+                 max_len=512, embeds=None, keep_engine=False):
     """Steady-state decode iterations of ``LLMEngine`` (every slot running
     a ``prompt_len``-token prompt): the host-clock p50 of one step, and a
     step's device time from ``torch.profiler`` — all kernels, the int8
     GEMM's and the paged-attention kernels' shares, the eight longest
-    kernels by name (ms a step), and the number of kernels."""
+    kernels by name (ms a step), and the number of kernels. ``embeds``
+    (an encdec arch's frame embeddings) goes with every request;
+    ``keep_engine`` returns the engine too, its slots still running."""
     import numpy as np
 
     from repro_torch.serve import EngineConfig, LLMEngine
 
     rng = np.random.default_rng(5)
-    eng = LLMEngine(arch, params, EngineConfig(slots=slots, max_len=max_len,
-                                               block_len=16))
+    eng = LLMEngine(arch, params, EngineConfig(
+        backend="paged", slots=slots, max_len=max_len, block_len=16))
     for _ in range(slots):
         eng.add_request(rng.integers(0, arch.cfg.vocab, prompt_len
-                                     ).astype(np.int32), max_new_tokens=200)
+                                     ).astype(np.int32), max_new_tokens=200,
+                        embeds=embeds)
     for _ in range(12):           # the admissions and the first decodes
         eng.step()
     walls = []
@@ -1550,7 +1574,8 @@ def decode_steps(torch, arch, params, slots, reps=25, prompt_len=200,
                                    if "int8_gemm" in e.key) / n / 1e3,
                 attn_device_ms=sum(dev_us(e) for e in kernels
                                    if "paged_attention" in e.key) / n / 1e3,
-                kernels=sum(e.count for e in kernels) / n)
+                kernels=sum(e.count for e in kernels) / n,
+                engine=eng if keep_engine else None)
 
 
 def small_input_agreement(torch, quant):
@@ -1572,7 +1597,8 @@ def small_input_agreement(torch, quant):
     outs = {}
     for device in ("cuda", "cpu"):
         eng = LLMEngine(arch, bridge.params_from_numpy(npp, device),
-                        EngineConfig(slots=4, max_len=64, admit_window=2),
+                        EngineConfig(backend="paged", slots=4, max_len=64,
+                                     admit_window=2),
                         device=device)
         hs = [eng.add_request(p, max_new_tokens=12) for p in prompts]
         eng.run_until_drained()
@@ -1607,8 +1633,8 @@ def small_input_spec_agreement(torch, quant):
     outs = {}
     for k in (0, 4):
         eng = LLMEngine(arch, params, EngineConfig(
-            slots=4, max_len=64, admit_window=2, block_len=8, spec_tokens=k,
-            prefix_cache=True), device="cuda")
+            backend="paged", slots=4, max_len=64, admit_window=2, block_len=8,
+            spec_tokens=k, prefix_cache=True), device="cuda")
         hs = [eng.add_request(p, max_new_tokens=12) for p in prompts]
         eng.run_until_drained()
         outs[k] = [eng.request(h).output for h in hs]
@@ -1650,7 +1676,7 @@ def small_input_chunked_agreement(torch, quant):
 
     def run(device, chunk, prefix):
         eng = LLMEngine(arch, params[device], EngineConfig(
-            slots=4, max_len=64, admit_window=2, block_len=8,
+            backend="paged", slots=4, max_len=64, admit_window=2, block_len=8,
             prefill_chunk_tokens=chunk, prefix_cache=prefix), device=device)
         hs = [eng.add_request(p, max_new_tokens=12) for p in prompts]
         eng.run_until_drained()
@@ -1688,7 +1714,8 @@ def small_input_chunked_agreement(torch, quant):
 # ---------------------------------------------------------------------------
 
 
-def serve_arena(torch, arch, params, prompts, slots, max_new, max_len):
+def serve_arena(torch, arch, params, prompts, slots, max_new, max_len,
+                embeds=None):
     """Full-width serving through ``LLMEngine(backend="arena")`` with the
     launch counts set to 0 just before and read just after."""
     from repro_torch.kernels.build import all_kernels
@@ -1702,7 +1729,9 @@ def serve_arena(torch, arch, params, prompts, slots, max_new, max_len):
         k.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    handles = [eng.add_request(p, max_new_tokens=max_new) for p in prompts]
+    handles = [eng.add_request(p, max_new_tokens=max_new,
+                               embeds=None if embeds is None else embeds[i])
+               for i, p in enumerate(prompts)]
     eng.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1978,7 +2007,7 @@ def arena_run(torch, cfg, arch, params, prompts, slots, max_new, max_len,
 
 
 def full_width_slot_agreement(cfg, arch, params, prompts, max_new,
-                              max_len):
+                              max_len, embeds=None):
     """Two requests through ``slot`` and through a 2-slot arena at full
     width (exact-length prefill on both): the same greedy tokens. Returns
     the tokens compared and the launch counts of each run (set to 0 just
@@ -1993,7 +2022,9 @@ def full_width_slot_agreement(cfg, arch, params, prompts, max_new,
             prefill_buckets=False))
         for k in all_kernels():
             k.launches = 0
-        hs = [eng.add_request(p, max_new_tokens=max_new) for p in prompts]
+        hs = [eng.add_request(p, max_new_tokens=max_new,
+                              embeds=None if embeds is None else embeds[i])
+              for i, p in enumerate(prompts)]
         eng.run_until_drained()
         outs[backend] = [eng.request(h).output for h in hs]
         launches[backend] = {k.name: k.launches for k in all_kernels()}
@@ -2160,8 +2191,9 @@ def small_input_ring_agreement(torch, quant):
     outs = {}
     for device in ("cuda", "cpu"):
         eng = LLMEngine(arch, bridge.params_from_numpy(npp, device),
-                        EngineConfig(slots=4, max_len=64, admit_window=2,
-                                     block_len=4), device=device)
+                        EngineConfig(backend="paged", slots=4, max_len=64,
+                                     admit_window=2, block_len=4),
+                        device=device)
         if not eng.backend.ring:
             raise AssertionError("gemma3-4b-smoke at max_len 64: no ring")
         hs = [eng.add_request(p, max_new_tokens=12) for p in prompts]
@@ -2276,8 +2308,9 @@ def small_input_moe_agreement(torch, quant):
     outs = {}
     for device, k in (("cuda", 0), ("cpu", 0), ("cuda", 4)):
         eng = LLMEngine(arch, bridge.params_from_numpy(npp, device),
-                        EngineConfig(slots=4, max_len=64, admit_window=2,
-                                     block_len=8, spec_tokens=k,
+                        EngineConfig(backend="paged", slots=4, max_len=64,
+                                     admit_window=2, block_len=8,
+                                     spec_tokens=k,
                                      prefix_cache=True), device=device)
         hs = [eng.add_request(p, max_new_tokens=12) for p in prompts]
         eng.run_until_drained()
@@ -2446,6 +2479,357 @@ def moe_phase(torch, qcfg, slots, max_new, spec_k):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: whisper-small (encdec) with embeds requests
+# ---------------------------------------------------------------------------
+
+# whisper-small's decoder rows for B1/B2/B4/B5 (phase 2): 8 rows up to its
+# 448-token decoder envelope, on and beside the 16-key block edge
+WHISPER_LENS = (0, 1, 15, 16, 17, 200, 447, 448)
+
+
+def whisper_requests(cfg, n, seed, clips=None):
+    """``n`` (decoder prompt, frame embeddings) pairs: embeddings [enc_seq,
+    d_model] of 0.1 · standard normal from numpy ``seed``, one clip a
+    request and prompts of 4–64 random tokens; or, with ``clips``, request
+    i hears clip i % clips and its prompt is the clip's 32-token prefix
+    (two blocks of 16) plus 4–32 tokens of its own."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_clips = clips or n
+    audio = [(0.1 * rng.standard_normal((cfg.enc_seq, cfg.d_model),
+                                        dtype=np.float32))
+             for _ in range(n_clips)]
+    prefix = [rng.integers(0, cfg.vocab, 32) for _ in range(n_clips)]
+    out = []
+    for i in range(n):
+        if clips:
+            p = np.concatenate([prefix[i % clips], rng.integers(
+                0, cfg.vocab, int(rng.integers(4, 33)))])
+        else:
+            p = rng.integers(0, cfg.vocab, int(rng.integers(4, 65)))
+        out.append((p.astype(np.int32), audio[i % n_clips]))
+    return out
+
+
+def agree(x, y):
+    """Equal greedy tokens of two runs' streams."""
+    return sum(a == b for u, v in zip(x, y) for a, b in zip(u, v))
+
+
+def small_input_encdec(torch):
+    """whisper-small-smoke (float32; 24 frames a request, two clips) on the
+    card and on the CPU: the paged backend over float32 and int8 pools
+    (kernels B1/B2 on the card, their plain versions on the CPU), the
+    arena float and under ``serve_quant`` (no kernel), and ``slot``: each
+    card run ≥ 90 % of the CPU run's greedy tokens, slot == arena on the
+    card, and the arena and slot runs launch no kernel. Returns {label:
+    (card vs CPU or slot vs arena equal tokens, total)}."""
+    from repro_torch import bridge, configs
+    from repro_torch.kernels.build import all_kernels
+    from repro_torch.models import registry
+    from repro_torch.serve import EngineConfig, LLMEngine
+
+    import numpy as np
+
+    base = dataclasses.replace(configs.smoke_config("whisper-small"),
+                               dtype="float32")
+    rng = np.random.default_rng(1)
+    audio = [(0.1 * rng.standard_normal((base.enc_seq, base.d_model))
+              ).astype(np.float32) for _ in range(2)]
+    prompts = [rng.integers(0, base.vocab, int(rng.integers(3, 30))
+                            ).astype(np.int32) for _ in range(6)]
+    npp = bridge.numpy_params(registry.build(base).schema(), seed=SEED)
+    params = {d: bridge.params_from_numpy(npp, d) for d in ("cuda", "cpu")}
+    out = {}
+    for quant in (False, True):
+        arch = registry.build(dataclasses.replace(base, serve_quant=quant))
+        outs = {}
+        for device, backend in (("cuda", "paged"), ("cpu", "paged"),
+                                ("cuda", "arena"), ("cpu", "arena"),
+                                ("cuda", "slot")):
+            if backend == "slot" and quant:
+                continue
+            eng = LLMEngine(arch, params[device], EngineConfig(
+                backend=backend, slots=4, max_len=64, admit_window=2,
+                block_len=8), device=device)
+            before = {k.name: k.launches for k in all_kernels()}
+            hs = [eng.add_request(p, max_new_tokens=12, embeds=audio[i % 2])
+                  for i, p in enumerate(prompts)]
+            eng.run_until_drained()
+            outs[device, backend] = [eng.request(h).output for h in hs]
+            launched = {k.name: k.launches - before[k.name]
+                        for k in all_kernels()}
+            if backend != "paged" and any(launched.values()):
+                raise AssertionError(f"whisper-small-smoke {backend} on "
+                                     f"{device} launched {launched}")
+        total = sum(len(x) for x in outs["cpu", "paged"])
+        pool = "int8" if quant else "float32"
+        out[f"paged {pool} pools"] = (agree(outs["cuda", "paged"],
+                                            outs["cpu", "paged"]), total)
+        out["arena " + ("int8 step" if quant else "float")] = (
+            agree(outs["cuda", "arena"], outs["cpu", "arena"]), total)
+        if not quant:
+            out["slot == arena (card)"] = (agree(outs["cuda", "slot"],
+                                                 outs["cuda", "arena"]),
+                                           total)
+    for label, (same, total) in out.items():
+        if same / total < 0.9 or ("slot" in label and same != total):
+            raise AssertionError(f"whisper-small-smoke {label}: {same}/"
+                                 f"{total} greedy tokens agree")
+    return out
+
+
+def small_input_vlm_embeds(torch):
+    """llava-next-34b-smoke (float32, ``serve_quant`` off) with ``embeds``
+    requests (the prompt's embeddings beside placeholder tokens) on the
+    arena, card against CPU (≥ 90 % equal greedy tokens), no kernel
+    launched. Returns (equal, total)."""
+    from repro_torch import bridge, configs
+    from repro_torch.kernels.build import all_kernels
+    from repro_torch.models import registry
+    from repro_torch.serve import EngineConfig, LLMEngine
+
+    import numpy as np
+
+    cfg = dataclasses.replace(configs.smoke_config("llava-next-34b"),
+                              dtype="float32", serve_quant=False)
+    arch = registry.build(cfg)
+    npp = bridge.numpy_params(arch.schema(), seed=SEED)
+    rng = np.random.default_rng(2)
+    reqs = []
+    for _ in range(6):
+        n = int(rng.integers(3, 30))
+        reqs.append((rng.integers(0, cfg.vocab, n).astype(np.int32),
+                     (0.5 * rng.standard_normal((n, cfg.d_model))
+                      ).astype(np.float32)))
+    outs = {}
+    for device in ("cuda", "cpu"):
+        eng = LLMEngine(arch, bridge.params_from_numpy(npp, device),
+                        EngineConfig(backend="arena", slots=4, max_len=64,
+                                     admit_window=2), device=device)
+        before = {k.name: k.launches for k in all_kernels()}
+        hs = [eng.add_request(p, max_new_tokens=12, embeds=e)
+              for p, e in reqs]
+        eng.run_until_drained()
+        outs[device] = [eng.request(h).output for h in hs]
+        if any(k.launches != before[k.name] for k in all_kernels()):
+            raise AssertionError("the vlm arena run launched a kernel")
+    same, total = agree(outs["cuda"], outs["cpu"]), sum(
+        len(x) for x in outs["cpu"])
+    if same / total < 0.9:
+        raise AssertionError(f"llava-next-34b-smoke embeds on the arena: "
+                             f"card vs CPU {same}/{total} tokens agree")
+    return same, total
+
+
+def clone_cache(cache):
+    return {k: v.clone() for k, v in cache.items()}
+
+
+def profiled_step_check(torch, step, cache, tokens, table, n_layers):
+    """One paged step (``step``: an arch's decode or verify) over a copy
+    of ``cache`` unprofiled and over another copy under ``profiled``: the
+    logits and caches bit-equal, and the profiler lists the paged
+    attention kernel exactly ``n_layers`` times. Returns (device ms of the
+    step, of the attention kernel, kernels in the step)."""
+    want = step(clone_cache(cache), tokens, table)
+    torch.cuda.synchronize()
+    c = clone_cache(cache)
+    with profiled(torch) as prof:
+        got = step(c, tokens, table)
+    if not bit_equal(got, want):
+        raise AssertionError("the profiled step's logits or cache differ "
+                             "from the unprofiled step's")
+    on_dev = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")]
+    attn = [e for e in on_dev if "paged_attention_kernel" in e.key]
+    n_attn = sum(e.count for e in attn)
+    if n_attn != n_layers:
+        raise AssertionError(f"the profiled step ran the attention kernel "
+                             f"{n_attn} times for {n_layers} layers")
+    return (sum(dev_us(e) for e in on_dev) / 1e3,
+            sum(dev_us(e) for e in attn) / 1e3,
+            sum(e.count for e in on_dev))
+
+
+def encdec_step_bound(params, cache, slots):
+    """Bytes bound of one 8-slot paged decode step (ms, bytes): the
+    decoder's weights, the final norm and the unembedding read once,
+    ``slots`` embedding rows, every slot's cross K/V and the self K/V of
+    the valid positions (and their block scales)."""
+    from repro_torch.models.schema import leaves
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    w = (sum(nbytes(t) for t in leaves(params["dec_stack"]))
+         + nbytes(params["final_norm"]) + nbytes(params["unembed"])
+         + slots * params["embed"].shape[1] * params["embed"].element_size())
+    kv = nbytes(cache["xk"]) + nbytes(cache["xv"])
+    pool = cache["k"]
+    per_pos = 2 * pool.shape[0] * pool.shape[2] * pool.shape[4] \
+        * pool.element_size()
+    kv += int(cache["len"].sum()) * per_pos
+    return (w + kv) / HBM_BYTES_PER_S * 1e3, w, kv
+
+
+def encdec_phase(torch, wcfg, slots, max_new, spec_k):
+    """Phase 9: small inputs (whisper-small-smoke, llava-next-34b-smoke
+    with embeds), then whisper-small at full width drawn on the card and
+    served on the paged backend (int8 and bf16 pools: plain, spec 4 with
+    the prefix cache on clip-shared prompts, chunked by 16), each decode
+    or verify step launching B2/B1 or B5/B4 once a layer and nothing
+    else; steady decode steps profiled (bit-equal to unprofiled ones); the
+    arena float and int8 and slot == arena with no kernel. Frees the
+    weights; returns the attention kernels' launches."""
+    from repro_torch.models import registry, schema
+
+    for label, (same, total) in small_input_encdec(torch).items():
+        print(f"small input whisper-small-smoke (float32, 24 frames) "
+              f"{label}: card vs CPU greedy tokens {same}/{total}"
+              if "slot" not in label else
+              f"small input whisper-small-smoke {label}: {same}/{total}",
+              flush=True)
+    same, total = small_input_vlm_embeds(torch)
+    print(f"small input llava-next-34b-smoke (float32, embeds requests) on "
+          f"the arena: card vs CPU greedy tokens {same}/{total}", flush=True)
+    max_len = 448
+    warch_f = registry.build(dataclasses.replace(wcfg, serve_quant=False))
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    wparams = schema.init_params(warch_f.schema(), gen, "cuda",
+                                 dtype=wcfg.compute_dtype)
+    torch.cuda.synchronize()
+    print(f"whisper-small params: "
+          f"{schema.param_count(warch_f.schema()) / 1e9:.3f} B "
+          f"({time.perf_counter() - t0:.1f} s to draw on the card)",
+          flush=True)
+    warchs = {"bf16": warch_f, "int8": registry.build(wcfg)}
+    plain = whisper_requests(wcfg, 16, seed=18)
+    shared = whisper_requests(wcfg, 16, seed=19, clips=4)
+    runs = {}
+    for pool in ("int8", "bf16"):
+        for label, reqs, kw in (
+                ("", plain, {}),
+                (" spec+prefix", shared,
+                 dict(prefix_cache=True, spec_tokens=spec_k)),
+                (" chunked", plain[:8], dict(prefill_chunk_tokens=16))):
+            # chunks rerun the encoder: the chunked runs serve 8 x 16
+            new = max_new // 2 if "chunked" in label else max_new
+            r = serve(torch, warchs[pool], wparams, [p for p, _ in reqs],
+                      slots, new, max_len=max_len,
+                      embeds=[e for _, e in reqs], **kw)
+            runs[pool + label] = r
+            spec = "spec" in label
+            print(f"serve whisper-small {pool}{label}: {len(reqs)} requests "
+                  f"x {new} tokens ({r['prompt_tokens']} decoder prompt "
+                  f"tokens, {wcfg.enc_seq} frames each), tokens/s="
+                  f"{r['tokens_per_s']:.2f} iter_ms(p50)="
+                  f"{r['decode_ms_per_iter_p50']:.2f} iter_ms(max)="
+                  f"{r['iter_ms_max']:.2f} ttft_avg_s={r['ttft_avg_s']:.4f} "
+                  f"iterations={r['iterations']:.0f} decode_dispatches="
+                  f"{r['decode_dispatches']:.0f} preemptions="
+                  f"{r['preemptions']} prefill_chunks_dispatched="
+                  f"{r['chunks']:.0f} spec_accept_rate="
+                  f"{r['spec_accept_rate']:.4f} prefix_cache_hit_rate="
+                  f"{r['prefix_cache_hit_rate']:.4f} pool_bytes="
+                  f"{r['pool_bytes']} kernels={json.dumps(r['launches'])}",
+                  flush=True)
+            attn = ("paged_attention_verify" if spec else "paged_attention"
+                    ) + ("_int8" if pool == "int8" else "")
+            want = {k: 0 for k in r["launches"]}
+            want[attn] = wcfg.n_layers * r["decode_dispatches"]
+            if r["launches"] != want:
+                raise AssertionError(
+                    f"whisper-small {pool}{label} launched {r['launches']}, "
+                    f"want {want} for {r['decode_dispatches']:.0f} "
+                    f"{'verify' if spec else 'decode'} steps")
+        if runs[pool + " spec+prefix"]["prefix_cache_hit_rate"] <= 0:
+            raise AssertionError(f"whisper-small {pool} spec+prefix: no "
+                                 f"prefix-cache hit")
+        if runs[pool + " chunked"]["chunks"] <= 8:
+            raise AssertionError(f"whisper-small {pool} chunked: "
+                                 f"{runs[pool + ' chunked']['chunks']:.0f} "
+                                 f"chunks")
+    counts = {
+        "paged_attention_int8": runs["int8"]["launches"][
+            "paged_attention_int8"] + runs["int8 chunked"]["launches"][
+            "paged_attention_int8"],
+        "paged_attention": runs["bf16"]["launches"]["paged_attention"]
+        + runs["bf16 chunked"]["launches"]["paged_attention"],
+        "paged_attention_verify_int8": runs["int8 spec+prefix"]["launches"][
+            "paged_attention_verify_int8"],
+        "paged_attention_verify": runs["bf16 spec+prefix"]["launches"][
+            "paged_attention_verify"]}
+    del runs
+    # steady 8-slot decode steps (64-token prompts), then one decode and
+    # one verify step profiled beside unprofiled copies
+    for pool in ("int8", "bf16"):
+        arch = warchs[pool]
+        st = decode_steps(torch, arch, wparams, slots, prompt_len=64,
+                          max_len=max_len, embeds=plain[0][1],
+                          keep_engine=True)
+        eng = st["engine"]
+        b_ms, w_bytes, kv_bytes = encdec_step_bound(wparams, eng.cache,
+                                                    slots)
+        table = eng.backend._tables()
+        tok = eng.backend.last_tok
+        dec = profiled_step_check(
+            torch, lambda c, t, tb: arch.paged_decode_step(wparams, c, t, tb),
+            eng.cache, tok, table, wcfg.n_layers)
+        ver = profiled_step_check(
+            torch, lambda c, t, tb: arch.paged_verify_step(wparams, c, t, tb),
+            eng.cache, tok[:, None].repeat(1, spec_k + 1).contiguous(),
+            table, wcfg.n_layers)
+        print(f"whisper-small decode steps ({pool} pools, {slots} slots "
+              f"running 64-token prompts): step p50 {st['step_ms_p50']:.2f} "
+              f"ms (host clock), device {st['device_ms']:.3f} ms a step of "
+              f"which paged attention {st['attn_device_ms']:.3f} ms, "
+              f"{st['kernels']:.0f} kernels a step (torch.profiler); device "
+              f"busy share {st['device_ms'] / st['step_ms_p50']:.4f}; bytes "
+              f"bound {b_ms:.4f} ms ({w_bytes / 1e6:.1f} MB of decoder "
+              f"weights and unembedding, {kv_bytes / 1e6:.1f} MB of cross "
+              f"and valid self K/V at 3.35 TB/s); a profiled decode step "
+              f"bit-equal to an unprofiled one: device {dec[0]:.3f} ms, "
+              f"attention {dec[1]:.4f} ms in {wcfg.n_layers} launches, "
+              f"{dec[2]} kernels; a profiled verify step (Q={spec_k + 1}): "
+              f"device {ver[0]:.3f} ms, attention {ver[1]:.4f} ms in "
+              f"{wcfg.n_layers} launches, {ver[2]} kernels; longest kernels "
+              f"(ms a step): {json.dumps(st['top'])}", flush=True)
+        del st, eng
+    # the arena (float caches, then the int8 step; 8 x 16 tokens) and
+    # slot: no kernel
+    for label, arch in (("float", warchs["bf16"]), ("int8", warchs["int8"])):
+        r = serve_arena(torch, arch, wparams, [p for p, _ in plain[:8]],
+                        slots, max_new // 2, max_len,
+                        embeds=[e for _, e in plain[:8]])
+        if any(r["launches"].values()):
+            raise AssertionError(f"whisper-small arena {label} launched "
+                                 f"{r['launches']}")
+        print(f"serve whisper-small arena ({label}, bf16 caches, {slots} "
+              f"slots, max_len {max_len}): 8 requests x {max_new // 2} "
+              f"tokens, "
+              f"tokens/s={r['tokens_per_s']:.2f} iter_ms(p50)="
+              f"{r['decode_ms_per_iter_p50']:.2f} iterations="
+              f"{r['iterations']:.0f} preemptions={r['preemptions']} "
+              f"cache_bytes={r['state_bytes_per_slot'] * slots} "
+              f"kernels={json.dumps(r['launches'])}", flush=True)
+        del r
+        n, launched = full_width_slot_agreement(
+            wcfg, arch, wparams, [p for p, _ in plain[:2]], 8, max_len,
+            embeds=[e for _, e in plain[:2]])
+        if any(v for run in launched.values() for v in run.values()):
+            raise AssertionError(f"whisper-small slot/arena {label} launched "
+                                 f"{launched}")
+        print(f"whisper-small {label} at full width: slot == arena (2 slots)"
+              f", {n} greedy tokens", flush=True)
+    del wparams
+    torch.cuda.empty_cache()
+    return counts
+
+
 def pool_row_bytes(torch, cfg, blk, int8):
     """Bytes of one pool row of one layer: K and V blocks, and the two
     per-block scales on int8 pools."""
@@ -2539,6 +2923,12 @@ def main() -> None:
     g_gemm = check_int8_gemm_shapes(torch, gcfg, (1, slots), read_flush)
     qcfg = configs.get_config("qwen3-moe-30b-a3b")
     q_attn = [check(torch, qcfg, slots, blk, MOE_LENS, *extra, flush,
+                    int8=i8)
+              for check, extra in ((check_attention, ()),
+                                   (check_verify, (spec_k + 1,)))
+              for i8 in (False, True)]
+    wcfg = configs.get_config("whisper-small")
+    w_attn = [check(torch, wcfg, slots, blk, WHISPER_LENS, *extra, flush,
                     int8=i8)
               for check, extra in ((check_attention, ()),
                                    (check_verify, (spec_k + 1,)))
@@ -2659,9 +3049,9 @@ def main() -> None:
           f"{opt_ms(g_gemm['device_ms'])} bound_ms={g_gemm['bound_ms']:.4f} "
           f"({g_gemm['bound_by']})", flush=True)
 
-    for e in q_attn:
-        print(f"kernel {e['name']} at qwen3-moe-30b-a3b's geometry (a GQA "
-              f"group of {qcfg.n_heads // qcfg.n_kv_heads}; {e['shape']}): "
+    for e, model in [(e, qcfg) for e in q_attn] + [(e, wcfg) for e in w_attn]:
+        print(f"kernel {e['name']} at {model.name}'s geometry (a GQA "
+              f"group of {model.n_heads // model.n_kv_heads}; {e['shape']}): "
               f"{e['cases_checked']} cases allclose, max |err| "
               f"{e['max_abs_err']}; kernel_ms={e['ms']:.4f} device_ms="
               f"{opt_ms(e['device_ms'])} plain_ms={e['plain_ms']:.4f} "
@@ -2788,7 +3178,8 @@ def main() -> None:
               f"card vs CPU greedy tokens {same_c}/{total}; on the card slot "
               f"== arena, paged (float32 pools) vs arena {same_p}/{total}",
               flush=True)
-    r = arena_run(torch, cfg, arch_f, params, plain, slots, max_new, 1024,
+    # 8 x 16 tokens, which keeps the whole run near 650 s
+    r = arena_run(torch, cfg, arch_f, params, plain[:8], slots, 16, 1024,
                   paged_step=st)
     n, _ = full_width_slot_agreement(cfg, arch_f, params, plain[:2], 8, 1024)
     print(f"glm4-9b at full width: slot == arena (2 slots, exact prefill), "
@@ -2801,7 +3192,7 @@ def main() -> None:
         print(f"small input {name}-smoke (float32, int8 arena step): arena "
               f"card vs CPU greedy tokens {same_c}/{total}; on the card slot "
               f"== arena", flush=True)
-    r = arena_run(torch, cfg, archs["int8"], params, plain, slots, max_new,
+    r = arena_run(torch, cfg, archs["int8"], params, plain[:8], slots, 16,
                   1024)
     main_counts["int8_gemm"] += r["launches"]["int8_gemm"]
     del r
@@ -3009,6 +3400,11 @@ def main() -> None:
     # -- phase 8: full-width qwen3-moe-30b-a3b on the paged backend --------
     phase(8, "qwen3-moe-30b-a3b on the paged backend")
     for name, n in moe_phase(torch, qcfg, slots, max_new, spec_k).items():
+        main_counts[name] += n
+
+    # -- phase 9: full-width whisper-small (encdec) with embeds requests ----
+    phase(9, "whisper-small (encdec) with embeds requests")
+    for name, n in encdec_phase(torch, wcfg, slots, max_new, spec_k).items():
         main_counts[name] += n
 
     for e in entries:

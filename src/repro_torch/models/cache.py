@@ -63,6 +63,15 @@ def cache_insert(batched, single, slot: int):
     return batched
 
 
+def cache_reset(cache, slot: int):
+    """Mark slot ``slot`` empty, in place: position 0 masks every cached
+    entry. Returns ``cache``. A utility for cache management outside the
+    engine's loop: the engines never reset a freed slot, they overwrite it
+    at the next ``cache_insert``."""
+    cache["len"][slot] = 0
+    return cache
+
+
 def bucket_for(n: int, min_bucket: int = 8, cap: int | None = None) -> int:
     """Smallest power-of-two bucket ≥ n (≥ min_bucket, clamped to cap)."""
     b = max(min_bucket, 1 << max(0, n - 1).bit_length())
@@ -517,17 +526,48 @@ class BlockAllocator:
         return None
 
 
+def check_fits(s: int, n_blocks: int, block_len: int) -> None:
+    """A prefill of ``s`` positions must fit ``n_blocks`` pool blocks."""
+    if s > n_blocks * block_len:
+        raise ValueError(f"prefill length {s} exceeds {n_blocks} blocks "
+                         f"× {block_len}")
+
+
 def _pad_to_blocks(kv: torch.Tensor, n_blocks: int, block_len: int) -> torch.Tensor:
     """Right-pad a ``[..., S, D]`` prefill KV leaf to ``n_blocks·block_len``
     positions (pad rows are garbage-by-construction: masked by ``len``)."""
     s = kv.shape[-2]
     target = n_blocks * block_len
-    if s > target:
-        raise ValueError(f"prefill length {s} exceeds {n_blocks} blocks "
-                         f"× {block_len}")
+    check_fits(s, n_blocks, block_len)
     if s == target:
         return kv
     return torch.nn.functional.pad(kv, (0, 0, 0, target - s))
+
+
+def paged_insert_kv(pool: torch.Tensor, single: torch.Tensor,
+                    block_ids: torch.Tensor) -> torch.Tensor:
+    """Scatter a batch-1 prefilled KV leaf into pool blocks, in place;
+    returns ``pool``.
+
+    ``pool`` [n_stack, N, Hkv, blk, D] (or [N, Hkv, blk, D] unstacked),
+    ``single`` [n_stack, 1, Hkv, S, D] (or [1, Hkv, S, D]) with S =
+    len(block_ids) · blk, ``block_ids`` [nb] int. Position ``p`` of the
+    prefill lands in pool block ``block_ids[p // blk]`` at offset ``p %
+    blk`` — the block-table layout of ``kernels.paged_attention``.
+    """
+    stacked = pool.dim() == 5
+    pool5, single5 = (pool, single) if stacked else (pool[None],
+                                                     single[None])
+    n_stack, _, hkv, blk, d = pool5.shape
+    nb = block_ids.shape[0]
+    s = single5.shape[3]
+    if s != nb * blk:
+        raise ValueError(f"prefill length {s} != {nb} blocks × {blk}")
+    # [n_stack, 1, Hkv, nb·blk, D] → [n_stack, nb, Hkv, blk, D]
+    src = single5[:, 0].reshape(n_stack, hkv, nb, blk, d).transpose(1, 2)
+    pool5[:, torch.as_tensor(block_ids, device=pool.device).long()] = \
+        src.to(pool.dtype)
+    return pool
 
 
 def prefill_write_kv(pool: torch.Tensor, single: torch.Tensor,
@@ -535,17 +575,12 @@ def prefill_write_kv(pool: torch.Tensor, single: torch.Tensor,
     """Paged-prefill write for a full-history layer, in place.
 
     ``pool`` [N, Hkv, blk, D] (one layer's block pool), ``single``
-    [1, Hkv, S, D] prefill K or V, ``block_ids`` [nb] int. Position ``p``
-    lands in pool block ``block_ids[p // blk]`` at offset ``p % blk``; the
-    partially-valid last block is padded to ``block_len`` and written whole
-    (pad rows are masked by ``len``).
+    [1, Hkv, S, D] prefill K or V, ``block_ids`` [nb] int: the layout of
+    ``paged_insert_kv``, with the partially-valid last block padded to
+    ``block_len`` and written whole (pad rows are masked by ``len``).
     """
-    _, hkv, blk, d = pool.shape
-    nb = block_ids.shape[0]
-    src = _pad_to_blocks(single, nb, blk)
-    # [1, Hkv, nb·blk, D] → [nb, Hkv, blk, D]
-    src = src[0].reshape(hkv, nb, blk, d).transpose(0, 1)
-    pool[block_ids.long()] = src.to(pool.dtype)
+    paged_insert_kv(pool, _pad_to_blocks(single, block_ids.shape[0],
+                                         pool.shape[-2]), block_ids)
 
 
 def ring_table_row(ring_ids, first_bi: int) -> List[int]:
@@ -632,11 +667,24 @@ def gather_prefix_kv(pool: torch.Tensor, prefix_ids: torch.Tensor,
     return g.transpose(0, 1).reshape(1, hkv, j * blk, d)
 
 
+# the leaves of a paged cache that live in pool blocks: K/V and the
+# per-block scales. Every other leaf (``len``, the encdec family's per-slot
+# cross K/V ``xk`` / ``xv``) is per slot and never copied or counted as pool.
+POOL_LEAVES = ("k", "v", "kscale", "vscale")
+
+
+def pool_leaves(cache) -> List[torch.Tensor]:
+    """The block-pool leaves of a paged cache, found by name: the dense
+    and moe families' ``stacks`` / ``tail`` entries, or the flat encdec
+    cache's own."""
+    groups = ([c for group in ("stacks", "tail") for c in cache.get(group, ())]
+              if "stacks" in cache else [cache])
+    return [c[name] for c in groups for name in POOL_LEAVES if name in c]
+
+
 def copy_block(cache, old: int, new: int) -> None:
     """Copy-on-write: duplicate pool block ``old`` into ``new`` in every
-    layer's K/V pools and per-block scales, in place."""
-    for group in ("stacks", "tail"):
-        for c in cache.get(group, ()):
-            for name in ("k", "v", "kscale", "vscale"):
-                if name in c:
-                    c[name][:, new] = c[name][:, old]
+    layer's K/V pools and per-block scales, in place (per-slot leaves are
+    left as they are)."""
+    for leaf in pool_leaves(cache):
+        leaf[:, new] = leaf[:, old]

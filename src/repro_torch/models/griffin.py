@@ -164,8 +164,9 @@ def _local_attention(x, p, cfg: ModelConfig, positions):
     return x + nn.dense(dense._merge_heads(o), p["wo"]), k, v
 
 
-def forward(params, tokens, cfg: ModelConfig):
-    x = nn.embed(tokens, params["embed"], cfg.compute_dtype)
+def forward(params, tokens, cfg: ModelConfig, *, embeds=None):
+    x = embeds if embeds is not None else nn.embed(
+        tokens, params["embed"], cfg.compute_dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     for kind, where, g in dense._layers(cfg):
         p = dense._entry(params, where, g)
@@ -224,11 +225,12 @@ def _attn_block_decode(x, p, c, cfg: ModelConfig, pos):
     return x + nn.dense(dense._merge_heads(o), p["wo"])
 
 
-def decode_step(params, cache, tokens, cfg: ModelConfig):
+def decode_step(params, cache, tokens, cfg: ModelConfig, *, embeds=None):
     """One token per row: [B] tokens → ([B, V] logits, cache updated in
     place). The per-token RG-LRU update is plain PyTorch
     (``rglru_decode_step``): the reference has no Pallas kernel there."""
-    x = nn.embed(tokens[:, None], params["embed"], cfg.compute_dtype)
+    x = embeds if embeds is not None else nn.embed(
+        tokens[:, None], params["embed"], cfg.compute_dtype)
     pos = dense._as_positions(cache["len"], x.shape[0])
     for kind, where, g in dense._layers(cfg):
         p = dense._entry(params, where, g)
@@ -244,11 +246,13 @@ def decode_step(params, cache, tokens, cfg: ModelConfig):
     return logits[:, 0], cache
 
 
-def prefill(params, tokens, cfg: ModelConfig, max_len: int):
+def prefill(params, tokens, cfg: ModelConfig, max_len: int, *,
+            embeds=None):
     """Forward pass capturing the exact per-layer state (conv tails,
     recurrent ``h``, ring K/V): [B, S] tokens → ([B, V] last-position
     logits, a batch-B cache)."""
-    x = nn.embed(tokens, params["embed"], cfg.compute_dtype)
+    x = embeds if embeds is not None else nn.embed(
+        tokens, params["embed"], cfg.compute_dtype)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)
     cache = init_cache(cfg, b, max_len, device=x.device)

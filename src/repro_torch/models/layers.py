@@ -17,6 +17,18 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.T
     return (y * (1.0 + gamma.float())).to(dt)
 
 
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Statistics in f32 (biased variance, as ``jnp.var``); the output is
+    cast back to the input dtype."""
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * gamma.float() + beta.float()).to(dt)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
     """Rotary embedding. x: [..., S, D] (D even); positions: [..., S]."""
     d = x.shape[-1]

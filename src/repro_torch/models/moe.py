@@ -257,7 +257,8 @@ def paged_verify_step(params, cache, tokens, cfg: ModelConfig, table, *,
 
 
 def paged_prefill(params, tokens, cfg: ModelConfig, cache, slot, block_ids,
-                  *, ring_ids=None, true_len=None, prefix_ids=None, start=0):
+                  *, ring_ids=None, true_len=None, embeds=None,
+                  prefix_ids=None, start=0):
     """Prefill straight into pool blocks: the dense family's scaffold with
     this family's layer (see ``transformer.paged_prefill`` for the write
     and resume conventions). ``tokens`` is the exact prompt or chunk: the
@@ -265,10 +266,11 @@ def paged_prefill(params, tokens, cfg: ModelConfig, cache, slot, block_ids,
     suffix (prefix-cache hit or chunk) routes as a group of its own."""
     return dense._paged_prefill_impl(
         params, tokens, cfg, cache, slot, block_ids, layer_fn=_prefill_layer,
-        ring_ids=ring_ids, true_len=true_len, prefix_ids=prefix_ids,
-        start=start)
+        ring_ids=ring_ids, true_len=true_len, embeds=embeds,
+        prefix_ids=prefix_ids, start=start)
 
 
 # the dense family's pool layout; K/V may live in int8 blocks
 init_paged_cache = dense.init_paged_cache
+paged_insert = dense.paged_insert
 PAGED_INT8_KV = True

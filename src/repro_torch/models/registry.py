@@ -1,11 +1,13 @@
 """Architecture registry (port of ``repro.models.registry``).
 
-Ported families: the dense transformer (which also serves the ``vlm-dense``
-configs, frontend stubbed, embeddings in) and the ``moe`` family, on the
+Every family of the reference is ported: the dense transformer (which also
+serves the ``vlm-dense`` configs, frontend stubbed, embeddings in), the
+``moe`` family, the Mamba-2 ``ssm`` and Griffin ``hybrid`` families and
+the whisper-style ``encdec`` family (frame embeddings in). Each binds its
 dense-arena entry points (``forward``, ``prefill``, ``decode_step``,
-``init_cache``; float caches) and their paged serving paths, and the
-Mamba-2 ``ssm`` and Griffin ``hybrid`` families on the dense-arena entry
-points. Other families raise ``NotImplementedError`` naming the family.
+``init_cache``); the attention-cache families (dense, vlm-dense, moe,
+encdec) also their paged serving paths. ``registry.build`` succeeds on
+every config; what the port still refuses is a mesh (``serve.api``).
 Entry points a family module does not define stay ``None``, as in the
 reference.
 """
@@ -24,6 +26,7 @@ _FAMILY_MODULES = {
     "moe": "repro_torch.models.moe",
     "ssm": "repro_torch.models.ssm",
     "hybrid": "repro_torch.models.griffin",
+    "encdec": "repro_torch.models.encdec",
 }
 
 
@@ -55,6 +58,8 @@ class Arch:
     # recurrent state has no growing KV to page)
     init_paged_cache: Optional[Callable] = None
     paged_decode_step: Optional[Callable] = None
+    # splice a batch-1 arena prefill into pool blocks (no engine calls it)
+    paged_insert: Optional[Callable] = None
     paged_prefill: Optional[Callable] = None
     # small-q speculative verify step (score spec_tokens + 1 positions per
     # slot against the paged pool in one pass)
@@ -86,10 +91,10 @@ class Arch:
         (every ported family has them, as every family does in the
         reference), ``paged`` the paged decode and prefill entry points
         (recurrent state has no KV cache to page): ``("slot", "arena",
-        "paged")`` for the dense, vlm-dense and moe families, ``("slot",
-        "arena")`` for ssm and hybrid. A ``serve_quant`` dense or moe arch
-        serves on all three (the int8 arena step on ``slot`` and
-        ``arena``)."""
+        "paged")`` for the dense, vlm-dense, moe and encdec families,
+        ``("slot", "arena")`` for ssm and hybrid. A ``serve_quant`` arch of
+        the attention-cache families serves on all three (the int8 arena
+        step on ``slot`` and ``arena``)."""
         out = []
         if self.decode_step is not None and self.prefill is not None:
             out += ["slot", "arena"]
@@ -132,6 +137,10 @@ def build(cfg: ModelConfig) -> Arch:
                                 lambda params, cache, tokens, table, **kw:
                                 mod.paged_decode_step(params, cache, tokens,
                                                       cfg, table, **kw)),
+        paged_insert=_bind(mod, "paged_insert",
+                           lambda cache, single, slot, block_ids:
+                           mod.paged_insert(cache, single, slot, block_ids,
+                                            cfg)),
         paged_prefill=_bind(mod, "paged_prefill",
                             lambda params, tokens, cache, slot, block_ids, **kw:
                             mod.paged_prefill(params, tokens, cfg, cache,

@@ -142,8 +142,9 @@ def _ssd_block(x, p, cfg: ModelConfig, return_state: bool = False):
     return out
 
 
-def forward(params, tokens, cfg: ModelConfig):
-    x = nn.embed(tokens, params["embed"], cfg.compute_dtype)
+def forward(params, tokens, cfg: ModelConfig, *, embeds=None):
+    x = embeds if embeds is not None else nn.embed(
+        tokens, params["embed"], cfg.compute_dtype)
     stack = params["stacks"][0]
     for i in range(cfg.n_layers):
         p = _layer(stack, i)
@@ -170,11 +171,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     }
 
 
-def decode_step(params, cache, tokens, cfg: ModelConfig):
+def decode_step(params, cache, tokens, cfg: ModelConfig, *, embeds=None):
     """One token per row: [B] tokens → ([B, V] logits, cache updated in
     place). The per-token SSD update is plain PyTorch (``ssd_decode_step``):
     the reference has no Pallas kernel there."""
-    x = nn.embed(tokens[:, None], params["embed"], cfg.compute_dtype)
+    x = embeds if embeds is not None else nn.embed(
+        tokens[:, None], params["embed"], cfg.compute_dtype)
     b = x.shape[0]
     d_inner, h, conv_ch = _dims(cfg)
     n, g, pdim = cfg.ssm_state, cfg.ssm_ngroups, cfg.ssm_headdim
@@ -209,10 +211,12 @@ def decode_step(params, cache, tokens, cfg: ModelConfig):
     return logits[:, 0], cache
 
 
-def prefill(params, tokens, cfg: ModelConfig, max_len: int):
+def prefill(params, tokens, cfg: ModelConfig, max_len: int, *,
+            embeds=None):
     """Forward pass capturing the exact per-layer (conv tail, SSD state):
     [B, S] tokens → ([B, V] last-position logits, a batch-B cache)."""
-    x = nn.embed(tokens, params["embed"], cfg.compute_dtype)
+    x = embeds if embeds is not None else nn.embed(
+        tokens, params["embed"], cfg.compute_dtype)
     b, s = x.shape[:2]
     cache = init_cache(cfg, b, max_len, device=x.device)
     stack = params["stacks"][0]

@@ -249,6 +249,30 @@ def _embed_in(params, tokens, cfg: ModelConfig, embeds):
     return nn.embed(tokens, params["embed"], cfg.compute_dtype)
 
 
+def _prompt_in(params, tokens, cfg: ModelConfig, embeds, start: int = 0,
+               stop: Optional[int] = None):
+    """A prefill's input, positions ``start .. stop - 1`` of a sequence
+    whose tokens from ``start`` on are ``tokens``: their token embedding
+    (all of ``tokens``); or, with ``embeds`` (the vlm frontend stub: the
+    prompt's embeddings from position 0), its rows, continued past its
+    last row by the token embedding. A chunk or a prefix-cache resume
+    takes its own rows of ``embeds``, and the re-prefill of a preempted
+    request its generated tokens after the prompt, whose embeddings the
+    request does not hold (the reference feeds ``embeds`` whole to every
+    prefill, ROADMAP Queue C). ``stop`` defaults to the end of
+    ``tokens``; without ``tokens`` the input is ``embeds`` whole."""
+    if embeds is None or tokens is None:
+        return _embed_in(params, tokens, cfg, embeds)
+    if stop is None:
+        stop = start + tokens.shape[1]
+    rows = embeds[:, start:stop]
+    if rows.shape[1] == stop - start:
+        return rows
+    rest = nn.embed(tokens[:, rows.shape[1]:stop - start], params["embed"],
+                    cfg.compute_dtype)
+    return torch.cat([rows, rest.to(rows.dtype)], dim=1)
+
+
 def forward(params, tokens, cfg: ModelConfig, *, embeds=None):
     """Teacher-forcing logits [B, S, V]. ``embeds`` [B, S, D] overrides the
     token embedding."""
@@ -395,7 +419,8 @@ def _prefill_impl(params, tokens, cfg: ModelConfig, max_len: int, *,
                   layer_fn, embeds=None, true_len=None):
     """Shared arena prefill scaffold (layer loop over ``layer_fn``, cache
     fill, last-real-token logits)."""
-    x = _embed_in(params, tokens, cfg, embeds)
+    x = _prompt_in(params, tokens, cfg, embeds, stop=None if true_len is None
+                   else int(torch.as_tensor(true_len).max()))
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)
     cache = init_cache(cfg, b, max_len, quantized=False, device=x.device)
@@ -694,8 +719,26 @@ def _paged_verify_impl(params, cache, tokens, cfg: ModelConfig, table, *,
     return _logits(params, x, cfg), cache
 
 
+def paged_insert(cache, single, slot: int, block_ids, cfg: ModelConfig):
+    """Splice a batch-1 prefilled arena cache (``prefill``'s, sized to
+    ``len(block_ids)·block_len``) into pool blocks ``block_ids`` of every
+    layer, in place, and set ``slot``'s position counter to the prefill's
+    length. Int8 pools take the cache's requantized integers exactly.
+    Returns ``cache``. (No engine calls it: the paged backend prefills
+    straight into the pool.)"""
+    from repro_torch.models.cache import paged_insert_kv
+
+    for group in ("stacks", "tail"):
+        for pc, sc in zip(cache.get(group, ()), single.get(group, ())):
+            paged_insert_kv(pc["k"], sc["k"], block_ids)
+            paged_insert_kv(pc["v"], sc["v"], block_ids)
+    cache["len"][slot] = single["len"][0]
+    return cache
+
+
 def paged_prefill(params, tokens, cfg: ModelConfig, cache, slot, block_ids,
-                  *, ring_ids=None, true_len=None, prefix_ids=None, start=0):
+                  *, ring_ids=None, true_len=None, embeds=None,
+                  prefix_ids=None, start=0):
     """Prefill straight into pool blocks: forward pass + per-layer K/V
     writes into the paged ``cache`` (in place). Returns ``(last-position
     logits, cache)``.
@@ -710,16 +753,17 @@ def paged_prefill(params, tokens, cfg: ModelConfig, cache, slot, block_ids,
     prefix-cache hit: the first ``start = len(prefix_ids)·block_len``
     positions already live in pool blocks ``prefix_ids``, ``tokens``
     carries only the suffix, and the cached blocks are attended, not
-    recomputed."""
+    recomputed. ``embeds`` [1, S, D] replaces the token embedding, as in
+    ``forward``."""
     return _paged_prefill_impl(params, tokens, cfg, cache, slot, block_ids,
                                layer_fn=_prefill_layer, ring_ids=ring_ids,
-                               true_len=true_len, prefix_ids=prefix_ids,
-                               start=start)
+                               true_len=true_len, embeds=embeds,
+                               prefix_ids=prefix_ids, start=start)
 
 
 def _paged_prefill_impl(params, tokens, cfg: ModelConfig, cache, slot,
                         block_ids, *, layer_fn, ring_ids=None, true_len=None,
-                        prefix_ids=None, start=0):
+                        embeds=None, prefix_ids=None, start=0):
     """Shared paged-prefill scaffold (block writes, layer loop, last-real-
     token logits, slot position update). Int8 pools requantize K/V
     (``cache.quantize_kv``, static ``attn.KV_SCALE``) before the write.
@@ -730,22 +774,27 @@ def _paged_prefill_impl(params, tokens, cfg: ModelConfig, cache, slot,
     ``prefix_ids`` with ``ring_ids`` is refused; the backend turns prefix
     caching off on ring layouts."""
     from repro_torch.models.cache import (
-        gather_prefix_kv, prefill_write_kv, quantize_kv,
+        check_fits, gather_prefix_kv, prefill_write_kv, quantize_kv,
         ring_prefill_write_kv, ring_write_index,
     )
 
     if prefix_ids is not None and ring_ids is not None:
         raise ValueError("prefix-cache resume is incompatible with ring "
                          "(sliding-window) prefill")
-    x = nn.embed(tokens, params["embed"], cfg.compute_dtype)
-    s = x.shape[1]
     start = int(start)
+    n = start + tokens.shape[1] if true_len is None else int(true_len)
+    if embeds is not None:
+        # the reference writes every row of ``embeds`` into this call's
+        # blocks, whatever ``start``: refuse where its write does
+        check_fits(embeds.shape[1], block_ids.shape[0],
+                   cache["stacks"][0]["k"].shape[3])
+    x = _prompt_in(params, tokens, cfg, embeds, start, n)
+    s = x.shape[1]
     positions = start + torch.arange(s, device=x.device)
     block_ids = torch.as_tensor(block_ids, dtype=torch.long, device=x.device)
     if prefix_ids is not None:
         prefix_ids = torch.as_tensor(prefix_ids, dtype=torch.long,
                                      device=x.device)
-    n = start + s if true_len is None else int(true_len)
     ring_index = None
     if ring_ids is not None:
         ring_ids = torch.as_tensor(ring_ids, dtype=torch.long,

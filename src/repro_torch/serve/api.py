@@ -167,9 +167,6 @@ class LLMEngine:
             raise ValueError(
                 f"request {req.rid}: unknown qos class {req.qos!r} "
                 f"(supported: {', '.join(QOS_CLASSES)})")
-        if req.embeds is not None:
-            raise NotImplementedError(
-                f"request {req.rid}: embeds inputs are not ported yet")
         live = self._requests.get(req.rid)
         if live is not None and not live.finished and live is not req:
             raise ValueError(

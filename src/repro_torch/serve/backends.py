@@ -25,12 +25,15 @@ selected by ``EngineConfig.backend``:
     reference.
 
 Which families serve on which backend is ``registry.Arch.serve_backends``:
-in the port every family serves on ``slot``/``arena``, and the dense and
-``moe`` families also on ``paged``. On ``slot``/``arena`` a
-``serve_quant`` arch of those families runs the reference's int8 arena
-step (int8 K/V in the compute-dtype cache, the ITA integer
-``decode_attention_int8``, W8A8 projections for the dense families). Not
-ported yet (refused with ``NotImplementedError``): mesh sharding.
+in the port every family serves on ``slot``/``arena``, and the dense,
+vlm-dense, ``moe`` and ``encdec`` families also on ``paged``. On
+``slot``/``arena`` a ``serve_quant`` arch of those families runs the
+reference's int8 arena step (int8 K/V in the compute-dtype cache, the ITA
+integer ``decode_attention_int8``, W8A8 projections for the dense
+families). A request's ``embeds`` (vlm-dense: the prompt's embeddings;
+encdec: the encoder's frame embeddings) reach every prefill whole, as in
+the reference. Not ported yet (refused with ``NotImplementedError``): mesh
+sharding.
 """
 
 from __future__ import annotations
@@ -45,8 +48,8 @@ import torch
 from repro_torch.models import registry
 from repro_torch.models.cache import (
     BlockAllocator, PagedLayout, blocks_for, bucket_for, cache_insert,
-    chain_key, chain_seed, copy_block, prefix_chain_keys, ring_blocks_for,
-    ring_table_row,
+    chain_key, chain_seed, copy_block, pool_leaves, prefix_chain_keys,
+    ring_blocks_for, ring_table_row,
 )
 from repro_torch.serve.config import BACKENDS, EngineConfig
 from repro_torch.serve.request import Request
@@ -99,6 +102,13 @@ def _build_qparams(arch: registry.Arch, params):
             arch.cfg.family in ("dense", "vlm-dense")):
         return arch.quantize_params(params)
     return None
+
+
+def request_embeds(req: Request, device: torch.device):
+    """``req.embeds`` as a batch-1 tensor on ``device`` (None without)."""
+    if req.embeds is None:
+        return None
+    return torch.as_tensor(np.asarray(req.embeds))[None].to(device)
 
 
 def continuation_tokens(req: Request) -> np.ndarray:
@@ -242,17 +252,18 @@ class ArenaBackend(_BackendBase):
         on-device sampled first token (fetched later, with the batch)."""
         toks = continuation_tokens(req)
         n = toks.size
+        embeds = request_embeds(req, self.device)
         bucket = bucket_for(n, self.ec.min_bucket, self.ec.max_len)
         if self._bucketing and self._bucket_ok(bucket):
             padded = np.zeros((1, bucket), np.int32)
             padded[0, :n] = toks
             logits, single = self.arch.prefill(
                 self.params, torch.from_numpy(padded).to(self.device),
-                self.ec.max_len, true_len=n)
+                self.ec.max_len, true_len=n, embeds=embeds)
         else:
             logits, single = self.arch.prefill(
                 self.params, torch.from_numpy(toks[None]).to(self.device),
-                self.ec.max_len)
+                self.ec.max_len, embeds=embeds)
         cache_insert(self.cache, single, slot)
         tok = sample_tokens_per_slot(logits, *samp, self.ec.seed,
                                      any_sampling=any_sampling)  # [1]
@@ -307,8 +318,9 @@ class SlotBackend(_BackendBase):
     def prefill(self, req: Request, slot: int, samp, any_sampling):
         toks = torch.from_numpy(continuation_tokens(req)[None]).to(
             self.device)
-        logits, self.caches[slot] = self.arch.prefill(self.params, toks,
-                                                      self.ec.max_len)
+        logits, self.caches[slot] = self.arch.prefill(
+            self.params, toks, self.ec.max_len,
+            embeds=request_embeds(req, self.device))
         tok = int(torch.argmax(logits[0]))             # host sync (counted)
         self.transfers += 1
         return tok
@@ -366,7 +378,8 @@ class PagedBackend(_BackendBase):
             num_blocks = blocks_for(ec.slots * ec.max_len, ec.block_len) + 1
         cfg = arch.cfg
         # ring blocks when sliding-window layers can't hold full history
-        self.ring = "L" in cfg.pattern and cfg.local_window < ec.max_len
+        self.ring = ("L" in cfg.pattern and cfg.local_window < ec.max_len
+                     and cfg.family != "encdec")
         wb = ring_blocks_for(cfg.local_window, ec.block_len) if self.ring \
             else 0
         self.layout = PagedLayout(
@@ -578,13 +591,11 @@ class PagedBackend(_BackendBase):
     @property
     def pool_bytes(self) -> int:
         """Resident bytes of the KV block pools (the full-history and ring
-        arenas, scale vectors included) — what the ring layout bounds by
-        the window and the int8 layout halves."""
-        return int(sum(c[key].numel() * c[key].element_size()
-                       for group in ("stacks", "tail")
-                       for c in self.cache.get(group, ())
-                       for key in ("k", "v", "kscale", "vscale")
-                       if key in c))
+        arenas, scale vectors included; per-slot leaves such as the encdec
+        cross K/V excluded) — what the ring layout bounds by the window
+        and the int8 layout halves."""
+        return int(sum(leaf.numel() * leaf.element_size()
+                       for leaf in pool_leaves(self.cache)))
 
     # -- iteration hooks ---------------------------------------------------
 
@@ -812,7 +823,8 @@ class PagedBackend(_BackendBase):
         logits, self.cache = self.arch.paged_prefill(
             self.params, torch.from_numpy(tokens).to(self.device), self.cache,
             slot, torch.from_numpy(suffix_ids).to(self.device),
-            ring_ids=ring_ids, true_len=true_len, prefix_ids=prefix_ids,
+            ring_ids=ring_ids, true_len=true_len,
+            embeds=request_embeds(req, self.device), prefix_ids=prefix_ids,
             start=c)
         # only budgeted (chunking) dispatches count: 0 on monolithic engines
         if self.chunking:

@@ -1,22 +1,15 @@
 """Engine configuration for the serve layer (port of ``repro.serve.config``).
 
 ``EngineConfig`` is the construction surface of
-:class:`repro_torch.serve.api.LLMEngine`. It keeps the reference's fields
-and validation, with two differences:
+:class:`repro_torch.serve.api.LLMEngine`. It keeps the reference's fields,
+defaults (``backend="arena"`` among them: every ported family serves on
+``"arena"``, quantized ``serve_quant`` archs and ``embeds`` requests
+too) and validation, with one difference: there is no ``attn_backend``
+— the port has no per-op backend ladder, the device decides which
+version of a kernel runs.
 
-* ``backend`` defaults to ``"paged"``, where the reference's default is
-  ``"arena"``. Every ported family serves on ``"arena"`` and ``"slot"``,
-  quantized (``serve_quant``) dense, vlm-dense and ``moe`` archs too
-  (the reference's int8 arena step), but one piece of the reference's
-  arena is still missing: ``embeds`` requests. Until it is ported the
-  default stays on ``"paged"``; the ``ssm`` and ``hybrid`` families
-  have to ask for ``"arena"`` or ``"slot"``.
-* there is no ``attn_backend`` — the port has no per-op backend ladder, the
-  device decides which version of a kernel runs.
-
-Settings the port does not implement yet (a family on a backend whose
-entry points are not ported, a mesh) are accepted here and refused at
-engine construction with ``NotImplementedError``. As in the reference, a
+What the port does not implement yet (a mesh) is refused at engine
+construction with ``NotImplementedError``. As in the reference, a
 ring layout on the paged backend (sliding-window layers with
 ``local_window < max_len``) accepts ``prefix_cache``,
 ``prefill_chunk_tokens`` and ``spec_tokens`` and silently turns them off.
@@ -82,8 +75,8 @@ class EngineConfig:
     # A multiple of block_len, >= it; None keeps monolithic prefills.
     prefill_chunk_tokens: Optional[int] = None
     # execution backend: "slot" (sequential per-slot reference), "arena"
-    # (batched dense arena), "paged" (shared block pool; the port's default)
-    backend: str = "paged"
+    # (batched dense arena), "paged" (shared block pool)
+    backend: str = "arena"
     # admission policy: "fcfs" | "bounded" | "qos" (see scheduler.py)
     scheduler: str = "bounded"
     rt_window: int = 2

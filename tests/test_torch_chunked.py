@@ -65,7 +65,8 @@ def test_chunked_greedy_identity_with_reference(name, quant, chunk, prefix,
     je = sync_reference_decode(JEngine(jarch, jparams, JEngineConfig(
         backend="paged", attn_backend="interpret" if quant else "xla",
         **kw)))
-    te = LLMEngine(tarch, tparams, EngineConfig(**kw), device="cpu")
+    te = LLMEngine(tarch, tparams, EngineConfig(backend="paged", **kw),
+                   device="cpu")
     prompts = spec_prompts(tarch.cfg.vocab, seed=2)
     jh = [je.add_request(p, max_new_tokens=10) for p in prompts]
     th = [te.add_request(p, max_new_tokens=10) for p in prompts]
@@ -103,8 +104,8 @@ def _serve(tarch, tparams, prompts, chunk, sample=False, **kw):
     """Every third request sampled when ``sample`` (a token is a function
     of the seed, the rid and its output index, chunked or not)."""
     eng = LLMEngine(tarch, tparams, EngineConfig(
-        slots=3, max_len=64, block_len=BLK, prefill_chunk_tokens=chunk,
-        seed=5, **kw), device="cpu")
+        backend="paged", slots=3, max_len=64, block_len=BLK,
+        prefill_chunk_tokens=chunk, seed=5, **kw), device="cpu")
     hs = [eng.add_request(p, max_new_tokens=6, rid=i, top_k=20,
                           temperature=0.9 if sample and i % 3 == 2 else None)
           for i, p in enumerate(prompts)]
@@ -163,7 +164,8 @@ def test_decode_progress_during_long_chunked_prefill(port_float):
     tarch, tparams = port_float
     vocab = tarch.cfg.vocab
     eng = LLMEngine(tarch, tparams, EngineConfig(
-        slots=2, max_len=64, block_len=BLK, prefill_chunk_tokens=BLK),
+        backend="paged", slots=2, max_len=64, block_len=BLK,
+        prefill_chunk_tokens=BLK),
         device="cpu")
     h0 = eng.add_request(_prompt(vocab, 5, seed=0), max_new_tokens=12)
     eng.step()
@@ -196,8 +198,8 @@ def test_chunk_budget_stall_counter(port_float):
     tarch, tparams = port_float
     vocab = tarch.cfg.vocab
     eng = LLMEngine(tarch, tparams, EngineConfig(
-        slots=2, max_len=64, block_len=BLK, prefill_chunk_tokens=BLK,
-        admit_batch=2), device="cpu")
+        backend="paged", slots=2, max_len=64, block_len=BLK,
+        prefill_chunk_tokens=BLK, admit_batch=2), device="cpu")
     eng.add_request(_prompt(vocab, 41, seed=0), max_new_tokens=3, rid=0)
     eng.step()
     eng.add_request(_prompt(vocab, 41, seed=1), max_new_tokens=3, rid=1)
@@ -212,7 +214,8 @@ def test_chunk_budget_stall_counter(port_float):
 def test_abort_mid_chunk_returns_every_block(port_float):
     tarch, tparams = port_float
     eng = LLMEngine(tarch, tparams, EngineConfig(
-        slots=2, max_len=64, block_len=BLK, prefill_chunk_tokens=BLK),
+        backend="paged", slots=2, max_len=64, block_len=BLK,
+        prefill_chunk_tokens=BLK),
         device="cpu")
     free0 = eng.alloc.free_blocks
     h = eng.add_request(_prompt(tarch.cfg.vocab, 41), max_new_tokens=4)
@@ -236,8 +239,9 @@ def test_queue_abort_forgets_chain_key_memo(port_float):
     tarch, tparams = port_float
     vocab = tarch.cfg.vocab
     eng = LLMEngine(tarch, tparams, EngineConfig(
-        slots=2, max_len=64, block_len=BLK, prefix_cache=True, num_blocks=8,
-        prefill_chunk_tokens=2 * BLK), device="cpu")
+        backend="paged", slots=2, max_len=64, block_len=BLK,
+        prefix_cache=True, num_blocks=8, prefill_chunk_tokens=2 * BLK),
+        device="cpu")
     eng.add_request(_prompt(vocab, 9, seed=0), max_new_tokens=8, rid=0)
     eng.step()                                    # rid 0 admitted whole
     p_old = _prompt(vocab, 33, seed=1)
@@ -262,7 +266,7 @@ def test_queue_abort_forgets_chain_key_memo(port_float):
 def test_finish_without_slot_forgets_memo(port_float):
     tarch, tparams = port_float
     eng = LLMEngine(tarch, tparams, EngineConfig(
-        slots=2, max_len=64, block_len=BLK, prefix_cache=True,
+        backend="paged", slots=2, max_len=64, block_len=BLK, prefix_cache=True,
         prefill_chunk_tokens=BLK), device="cpu")
     req = Request(rid=5, prompt=_prompt(tarch.cfg.vocab, 9),
                   max_new_tokens=2)
@@ -283,7 +287,7 @@ def test_randomized_chunked_interleave_partition_invariant(port_float):
     tarch, tparams = port_float
     vocab = tarch.cfg.vocab
     eng = LLMEngine(tarch, tparams, EngineConfig(
-        slots=3, max_len=64, block_len=BLK, prefix_cache=True,
+        backend="paged", slots=3, max_len=64, block_len=BLK, prefix_cache=True,
         prefill_chunk_tokens=BLK, scheduler="qos", rt_window=1),
         device="cpu")
     rng = np.random.default_rng(42)
@@ -334,7 +338,8 @@ def test_metrics_keys_equal_reference(kw):
     jarch, jparams, tarch, tparams = setup_pair("glm4-9b", False)
     ec = dict(ENGINE_KW, **kw)
     je = JEngine(jarch, jparams, JEngineConfig(backend="paged", **ec))
-    te = LLMEngine(tarch, tparams, EngineConfig(**ec), device="cpu")
+    te = LLMEngine(tarch, tparams, EngineConfig(backend="paged", **ec),
+                   device="cpu")
     m, jm = te.metrics(), je.metrics()
     assert set(m) == set(jm)
     assert all(v == 0.0 for v in m.values())
@@ -350,9 +355,10 @@ def test_prefill_chunk_tokens_validation_matches_reference(block_len, chunk):
         JEngineConfig(backend="paged", block_len=block_len,
                       prefill_chunk_tokens=chunk)
     with pytest.raises(ValueError) as got:
-        EngineConfig(block_len=block_len, prefill_chunk_tokens=chunk)
+        EngineConfig(backend="paged", block_len=block_len,
+                     prefill_chunk_tokens=chunk)
     assert str(got.value) == str(want.value)
-    assert EngineConfig(block_len=16, prefill_chunk_tokens=32
+    assert EngineConfig(backend="paged", block_len=16, prefill_chunk_tokens=32
                         ).prefill_chunk_tokens == 32
 
 

@@ -29,8 +29,10 @@ gemma3-4b's geometry on ring tables (``start`` in the thousands, window
 1024) and its full-history rows, and the ring-pool engine on
 ``gemma3-4b-smoke`` agrees with the CPU's. Paged decode and verify
 attention are held at qwen3-moe-30b-a3b's geometry (a GQA group of 8, rows
-up to 4096 keys), and the moe family's paged steps and engine on
-``qwen3-moe-30b-a3b-smoke`` agree with the CPU's. The dense and moe
+up to 4096 keys) and at whisper-small's (a GQA group of 1, head_dim 64,
+rows up to 448 keys), and the moe and encdec families' paged steps and
+engines on ``qwen3-moe-30b-a3b-smoke`` / ``whisper-small-smoke`` agree
+with the CPU's. The dense and moe
 families' float arena and slot backends (plain PyTorch, no kernel) on the
 card agree with the CPU's arena. The int8 arena step: the GEMM bit-exact at
 M = 1 on glm4-9b's projection shapes (the slot backend's batch-1 decode),
@@ -442,21 +444,20 @@ def test_paged_attention_gemma3_ring_and_full_rows(cuda_device, pool, rows):
 
 
 MOE_LENS = [0, 17, 130, 544, 1000, 2047, 3000, 4096]
+# whisper-small's decoder rows (max_len 448): empty, one key, both sides of
+# a 16-key block, a long row and the envelope's end
+WHISPER_LENS = [0, 1, 15, 16, 17, 200, 447, 448]
 
 
-@pytest.mark.parametrize("pool", [torch.float32, torch.bfloat16, torch.int8],
-                         ids=["f32", "bf16", "int8"])
-@pytest.mark.parametrize("kind", ["decode", "verify"])
-def test_paged_kernels_at_qwen3_moe_geometry(cuda_device, pool, kind):
-    """B1/B2 (decode) and B4/B5 (verify, Q = 5) at qwen3-moe-30b-a3b's
-    geometry: 32 query heads on 4 kv heads of 128 (a GQA group of 8), 8
-    rows up to 4096 keys. Allclose with the plain version; the verify row
-    0 bit-equal to the decode."""
+def _check_paged_geometry(dev, pool, kind, *, hq, hkv, d, lens, seed):
+    """B1/B2 (decode) or B4/B5 (verify, Q = 5, lens ≥ 1) at a model's head
+    geometry: one launch, allclose with the plain version; the verify row
+    0 bit-equal to the decode, a decode row of lens 0 zero."""
     int8 = pool == torch.int8
     verify = kind == "verify"
-    lens = [max(x, 1) for x in MOE_LENS] if verify else MOE_LENS
-    args, kw = _attn_case(cuda_device, pool=pool, hq=32, hkv=4, d=128,
-                          lens=lens, qlen=5 if verify else 1, seed=9)
+    lens = [max(x, 1) for x in lens] if verify else lens
+    args, kw = _attn_case(dev, pool=pool, hq=hq, hkv=hkv, d=d, lens=lens,
+                          qlen=5 if verify else 1, seed=seed)
     if int8:   # the serving path's bf16 queries
         args = (args[0].bfloat16(),) + args[1:]
     if verify:
@@ -483,6 +484,31 @@ def test_paged_kernels_at_qwen3_moe_geometry(cuda_device, pool, kind):
         assert torch.equal(out[:, :, :1], dec(q1, *args[1:], **kw))
     else:
         assert torch.all(out[0] == 0)
+
+
+@pytest.mark.parametrize("pool", [torch.float32, torch.bfloat16, torch.int8],
+                         ids=["f32", "bf16", "int8"])
+@pytest.mark.parametrize("kind", ["decode", "verify"])
+def test_paged_kernels_at_qwen3_moe_geometry(cuda_device, pool, kind):
+    """B1/B2 (decode) and B4/B5 (verify, Q = 5) at qwen3-moe-30b-a3b's
+    geometry: 32 query heads on 4 kv heads of 128 (a GQA group of 8), 8
+    rows up to 4096 keys. Allclose with the plain version; the verify row
+    0 bit-equal to the decode."""
+    _check_paged_geometry(cuda_device, pool, kind, hq=32, hkv=4, d=128,
+                          lens=MOE_LENS, seed=9)
+
+
+@pytest.mark.parametrize("pool", [torch.float32, torch.bfloat16, torch.int8],
+                         ids=["f32", "bf16", "int8"])
+@pytest.mark.parametrize("kind", ["decode", "verify"])
+def test_paged_kernels_at_whisper_small_geometry(cuda_device, pool, kind):
+    """B1/B2 (decode) and B4/B5 (verify, Q = 5) at whisper-small's decoder
+    geometry: 12 query heads on 12 kv heads of 64 (a GQA group of 1, one
+    query row a K/V tile; 5 rows in verify), 8 rows up to 448 keys.
+    Allclose with the plain version; the verify row 0 bit-equal to the
+    decode."""
+    _check_paged_geometry(cuda_device, pool, kind, hq=12, hkv=12, d=64,
+                          lens=WHISPER_LENS, seed=18)
 
 
 @pytest.mark.parametrize("quant_on", [False, True], ids=["float", "int8"])
@@ -533,7 +559,8 @@ def test_moe_paged_steps_on_card_agree_with_cpu(cuda_device, quant_on):
     outs = {}
     for device, k in (("cuda", 0), ("cpu", 0), ("cuda", 3)):
         eng = LLMEngine(arch, bridge.params_from_numpy(npp, device),
-                        EngineConfig(slots=4, max_len=64, admit_window=2,
+                        EngineConfig(backend="paged", slots=4, max_len=64,
+                                     admit_window=2,
                                      block_len=8, spec_tokens=k),
                         device=device)
         hs = [eng.add_request(p, max_new_tokens=12) for p in prompts]
@@ -541,6 +568,78 @@ def test_moe_paged_steps_on_card_agree_with_cpu(cuda_device, quant_on):
         outs[device, k] = [eng.request(h).output for h in hs]
     assert outs["cuda", 0] == outs["cpu", 0]
     assert outs["cuda", 3] == outs["cuda", 0]
+
+
+@pytest.mark.parametrize("quant_on", [False, True], ids=["float", "int8"])
+def test_encdec_on_card_agrees_with_cpu(cuda_device, quant_on):
+    """Smoke-size whisper-small (float32): a 13-token decoder prefill over
+    24 frames and three paged decode steps on the card (B1/B2, one launch
+    a layer a step) and on the CPU, logits allclose; then the engine's
+    greedy tokens on the card equal the CPU's on the paged backend (spec
+    3 on vs off too) and on the arena and slot backends, which launch no
+    kernel."""
+    from repro_torch.kernels.build import all_kernels
+    from repro_torch.models import registry
+    from repro_torch.models.cache import PagedLayout
+    from repro_torch.serve import EngineConfig, LLMEngine
+
+    cfg = dataclasses.replace(configs.smoke_config("whisper-small"),
+                              dtype="float32", serve_quant=quant_on)
+    arch = registry.build(cfg)
+    npp = bridge.numpy_params(arch.schema(), seed=0)
+    rng = np.random.default_rng(5)
+    emb = torch.from_numpy((0.1 * rng.standard_normal(
+        (2, cfg.enc_seq, cfg.d_model))).astype(np.float32))
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 13)))
+    ids = torch.arange(3, 7, dtype=torch.int32)
+    table = torch.zeros((1, 8), dtype=torch.int32)
+    table[0, :4] = ids
+    kern = attn_ops.KERNEL_INT8 if quant_on else attn_ops.KERNEL
+    logits = {}
+    for device in ("cuda", "cpu"):
+        params = bridge.params_from_numpy(npp, device)
+        cache = arch.init_paged_cache(1, PagedLayout(4, 12, 32),
+                                      device=device)
+        out, cache = arch.paged_prefill(params, prompt.to(device), cache, 0,
+                                        ids.to(device),
+                                        embeds=emb[:1].to(device))
+        steps = [out]
+        tok = out.argmax(-1).to(torch.int32)
+        for _ in range(3):
+            before = kern.launches
+            out, cache = arch.paged_decode_step(params, cache, tok,
+                                                table.to(device))
+            if device == "cuda":
+                torch.cuda.synchronize()
+                assert kern.launches == before + cfg.n_layers
+            steps.append(out)
+            tok = out.argmax(-1).to(torch.int32)
+        logits[device] = torch.stack([x.cpu() for x in steps])
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=1e-4,
+                               rtol=1e-4)
+
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(3, 20)))
+               for _ in range(6)]
+    outs = {}
+    for device, backend, k in (("cuda", "paged", 0), ("cpu", "paged", 0),
+                               ("cuda", "paged", 3), ("cuda", "arena", 0),
+                               ("cpu", "arena", 0), ("cuda", "slot", 0)):
+        eng = LLMEngine(arch, bridge.params_from_numpy(npp, device),
+                        EngineConfig(backend=backend, slots=4, max_len=48,
+                                     admit_window=2, block_len=4,
+                                     spec_tokens=k), device=device)
+        before = {kk.name: kk.launches for kk in all_kernels()}
+        hs = [eng.add_request(p, max_new_tokens=10, embeds=emb[i % 2].numpy())
+              for i, p in enumerate(prompts)]
+        eng.run_until_drained()
+        outs[device, backend, k] = [eng.request(h).output for h in hs]
+        if backend != "paged":
+            assert all(kk.launches == before[kk.name]
+                       for kk in all_kernels()), backend
+    assert outs["cuda", "paged", 0] == outs["cpu", "paged", 0]
+    assert outs["cuda", "paged", 3] == outs["cuda", "paged", 0]
+    assert outs["cuda", "arena", 0] == outs["cpu", "arena", 0]
+    assert outs["cuda", "slot", 0] == outs["cuda", "arena", 0]
 
 
 def test_ring_serving_on_card_agrees_with_cpu(cuda_device):
@@ -562,7 +661,8 @@ def test_ring_serving_on_card_agrees_with_cpu(cuda_device):
         outs = []
         for device in ("cuda", "cpu"):
             eng = LLMEngine(arch, bridge.params_from_numpy(npp, device),
-                            EngineConfig(slots=4, max_len=64, admit_window=2,
+                            EngineConfig(backend="paged", slots=4, max_len=64,
+                                         admit_window=2,
                                          block_len=4), device=device)
             assert eng.backend.ring
             hs = [eng.add_request(p, max_new_tokens=12) for p in prompts]
@@ -593,7 +693,7 @@ def test_serving_path_on_card_agrees_with_cpu_plain_versions(cuda_device):
         outs = []
         for device in ("cuda", "cpu"):
             eng = LLMEngine(arch, bridge.params_from_numpy(npp, device),
-                            EngineConfig(slots=4, max_len=64,
+                            EngineConfig(backend="paged", slots=4, max_len=64,
                                          admit_window=2), device=device)
             hs = [eng.add_request(p, max_new_tokens=12) for p in prompts]
             eng.run_until_drained()
@@ -625,7 +725,8 @@ def test_spec_serving_on_card_agrees_with_cpu_and_spec_off(cuda_device):
         outs = {}
         for device, k in (("cuda", 3), ("cuda", 0), ("cpu", 3)):
             eng = LLMEngine(arch, bridge.params_from_numpy(npp, device),
-                            EngineConfig(slots=4, max_len=64, admit_window=2,
+                            EngineConfig(backend="paged", slots=4, max_len=64,
+                                         admit_window=2,
                                          block_len=8, spec_tokens=k,
                                          prefix_cache=True), device=device)
             hs = [eng.add_request(p, max_new_tokens=12) for p in prompts]
@@ -665,7 +766,8 @@ def test_chunked_serving_on_card_agrees_with_monolithic_and_cpu(
         outs = {}
         for device, c in (("cuda", chunk), ("cuda", None), ("cpu", chunk)):
             eng = LLMEngine(arch, bridge.params_from_numpy(npp, device),
-                            EngineConfig(slots=4, max_len=64, admit_window=2,
+                            EngineConfig(backend="paged", slots=4, max_len=64,
+                                         admit_window=2,
                                          block_len=8, prefill_chunk_tokens=c,
                                          prefix_cache=prefix), device=device)
             hs = [eng.add_request(p, max_new_tokens=12) for p in prompts]

@@ -46,6 +46,7 @@ def test_port_imports_neither_jax_nor_the_reference_package():
             "repro_torch.kernels.int_softmax.ref",
             "repro_torch.kernels.ita_attention.ops",
             "repro_torch.kernels.ita_attention.ref",
+            "repro_torch.models.encdec", "repro_torch.serve.engine",
             } <= set(mods)
     script = (
         "import importlib, sys\n"
@@ -67,8 +68,9 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
         bridge.params_from_numpy(npp)
     params = bridge.params_from_numpy(npp, "cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        LLMEngine(arch, params, EngineConfig())
-    eng = LLMEngine(arch, params, EngineConfig(), device="cpu")
+        LLMEngine(arch, params, EngineConfig(backend="paged"))
+    eng = LLMEngine(arch, params, EngineConfig(backend="paged"),
+                    device="cpu")
     assert eng.cache["len"].device.type == "cpu"
 
 

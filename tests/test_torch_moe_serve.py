@@ -64,7 +64,8 @@ def identity_cell(quant, prompts, engine_kw, max_new=10, **overrides):
     je = sync_reference_decode(JEngine(jarch, jparams, JEngineConfig(
         backend="paged", attn_backend="interpret" if quant else "xla",
         **engine_kw)))
-    te = LLMEngine(tarch, tparams, EngineConfig(**engine_kw), device="cpu")
+    te = LLMEngine(tarch, tparams, EngineConfig(backend="paged", **engine_kw),
+                   device="cpu")
     jh = [je.add_request(p, max_new_tokens=max_new) for p in prompts]
     th = [te.add_request(p, max_new_tokens=max_new) for p in prompts]
     je.run_until_drained()

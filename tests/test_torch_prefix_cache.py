@@ -114,7 +114,8 @@ def test_prefix_cache_greedy_identity_with_reference(name, quant):
     je = sync_reference_decode(JEngine(jarch, jparams, JEngineConfig(
         backend="paged", attn_backend="interpret" if quant else "xla",
         **kw)))
-    te = LLMEngine(tarch, tparams, EngineConfig(**kw), device="cpu")
+    te = LLMEngine(tarch, tparams, EngineConfig(backend="paged", **kw),
+                   device="cpu")
     prompts = spec_prompts(tarch.cfg.vocab, seed=2)
     jh = [je.add_request(p, max_new_tokens=10) for p in prompts]
     th = [te.add_request(p, max_new_tokens=10) for p in prompts]
@@ -151,7 +152,7 @@ def test_float_cache_on_equals_cache_off_and_memo_hygiene():
     outs = {}
     for on in (False, True):
         eng = LLMEngine(tarch, tparams, EngineConfig(
-            **ENGINE_KW, prefix_cache=on), device="cpu")
+            backend="paged", **ENGINE_KW, prefix_cache=on), device="cpu")
         hs = [eng.add_request(p, max_new_tokens=8) for p in prompts]
         eng.run_until_drained()
         outs[on] = [eng.request(h).output for h in hs]
@@ -175,7 +176,7 @@ def test_copy_on_write_of_a_shared_tail_block(quant):
 
     def run(fork):
         eng = LLMEngine(tarch, tparams, EngineConfig(
-            **ENGINE_KW, prefix_cache=True), device="cpu")
+            backend="paged", **ENGINE_KW, prefix_cache=True), device="cpu")
         h = eng.add_request(prompt, max_new_tokens=8)
         eng.step()                                # admission
         eng.step()                                # one decode

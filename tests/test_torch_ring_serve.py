@@ -70,7 +70,8 @@ def test_ring_engine_matches_reference_every_iteration(quant, scheduler,
     je = sync_reference_decode(JEngine(jarch, jparams, JEngineConfig(
         backend="paged", attn_backend="interpret" if quant else "xla",
         **kw)))
-    te = LLMEngine(tarch, tparams, EngineConfig(**kw), device="cpu")
+    te = LLMEngine(tarch, tparams, EngineConfig(backend="paged", **kw),
+                   device="cpu")
     jb, tb = je.backend, te.backend
     assert tb.ring and jb.ring
     assert tb.layout.ring_blocks == jb.layout.ring_blocks == WB
@@ -116,7 +117,8 @@ def test_window_at_max_len_builds_no_ring():
     jarch, jparams, tarch, tparams = setup_pair(NAME, False)
     kw = dict(slots=2, max_len=16, block_len=BLK)
     je = JEngine(jarch, jparams, JEngineConfig(backend="paged", **kw))
-    te = LLMEngine(tarch, tparams, EngineConfig(**kw), device="cpu")
+    te = LLMEngine(tarch, tparams, EngineConfig(backend="paged", **kw),
+                   device="cpu")
     assert not te.backend.ring and not je.backend.ring
     assert te.layout.window is None and te.layout.ring_num_blocks == 0
     assert te.backend.pool_bytes == je.backend.pool_bytes
@@ -134,7 +136,8 @@ def test_ring_pool_bytes_bounded_by_the_window(quant):
     would, by the reference's own count."""
     jarch, jparams, tarch, tparams = setup_pair(NAME, quant)
     kw = dict(slots=SLOTS, max_len=MAX_LEN, block_len=BLK)
-    te = LLMEngine(tarch, tparams, EngineConfig(**kw), device="cpu")
+    te = LLMEngine(tarch, tparams, EngineConfig(backend="paged", **kw),
+                   device="cpu")
     je = JEngine(jarch, jparams, JEngineConfig(backend="paged", **kw))
     assert te.backend.pool_bytes == je.backend.pool_bytes
     full = tarch.init_paged_cache(SLOTS, tcache.PagedLayout(

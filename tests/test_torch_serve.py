@@ -91,7 +91,8 @@ def serve_both(name, quant, scheduler, max_new=10):
     je = sync_reference_decode(JEngine(jarch, jparams, JEngineConfig(
         backend="paged", attn_backend="interpret" if quant else "xla",
         **kw)))
-    te = LLMEngine(tarch, tparams, EngineConfig(**kw), device="cpu")
+    te = LLMEngine(tarch, tparams, EngineConfig(backend="paged", **kw),
+                   device="cpu")
     prompts = prompts_for(tarch.cfg.vocab)
     jh = [je.add_request(p, max_new_tokens=max_new) for p in prompts]
     th = [te.add_request(p, max_new_tokens=max_new) for p in prompts]
@@ -217,7 +218,8 @@ def test_sampling_is_a_function_of_seed_rid_and_index():
 
     def run(batch, sample=True):
         eng = LLMEngine(tarch, tparams, EngineConfig(
-            slots=4, max_len=64, admit_batch=4, seed=7), device="cpu")
+            backend="paged", slots=4, max_len=64, admit_batch=4, seed=7),
+            device="cpu")
         hs = {}
         for rid in batch:
             temp, top_k = (0.9, 20) if rid % 2 and sample else (None, 0)
@@ -270,5 +272,6 @@ def test_mesh_and_ring_layouts_raise_by_name():
     for kw in (dict(), dict(prefill_chunk_tokens=32, spec_tokens=2,
                             prefix_cache=True)):
         with pytest.raises(NotImplementedError, match="mesh"):
-            LLMEngine(tarch, tparams, EngineConfig(**kw), mesh=object(),
+            LLMEngine(tarch, tparams, EngineConfig(backend="paged", **kw),
+                      mesh=object(),
                       device="cpu")

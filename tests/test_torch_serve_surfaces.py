@@ -41,7 +41,8 @@ def engine_pair(quant, **kw):
     je = sync_reference_decode(JEngine(jarch, jparams, JEngineConfig(
         backend="paged", attn_backend="interpret" if quant else "xla",
         **ec)))
-    return je, LLMEngine(tarch, tparams, EngineConfig(**ec), device="cpu")
+    return je, LLMEngine(tarch, tparams, EngineConfig(backend="paged", **ec),
+                         device="cpu")
 
 
 def prompt(n, seed):

@@ -302,7 +302,8 @@ def spec_identity_cell(name, k, quant, prefix, **overrides):
     je = sync_reference_decode(JEngine(jarch, jparams, JEngineConfig(
         backend="paged", attn_backend="interpret" if quant else "xla",
         **kw)))
-    te = LLMEngine(tarch, tparams, EngineConfig(**kw), device="cpu")
+    te = LLMEngine(tarch, tparams, EngineConfig(backend="paged", **kw),
+                   device="cpu")
     prompts = spec_prompts(tarch.cfg.vocab)
     jh = [je.add_request(p, max_new_tokens=10) for p in prompts]
     th = [te.add_request(p, max_new_tokens=10) for p in prompts]
@@ -347,7 +348,8 @@ def test_port_spec_on_equals_spec_off(quant, prefix):
 
     def run(k):
         eng = LLMEngine(tarch, tparams, EngineConfig(
-            **ENGINE_KW, spec_tokens=k, prefix_cache=prefix, seed=3),
+            backend="paged", **ENGINE_KW, spec_tokens=k, prefix_cache=prefix,
+            seed=3),
             device="cpu")
         dropped = []
         commit = eng.backend.commit
