@@ -185,6 +185,21 @@ non-zero on failure; none is caught):
    arena) the card's greedy tokens against the CPU's. Phase 2 holds B1,
    B2, B4 and B5 at whisper-small's geometry (12 query heads on 12 kv
    heads of 64, a GQA group of 1; 8 rows of lens 0–448).
+10. train on the card (``repro_torch.train``): one ``make_train_step``
+   (float32, 2 microbatches, AdamW) on phi3-mini-3.8b, qwen3-moe-30b-a3b,
+   whisper-small and llava-next-34b smoke configs on the card and on the
+   CPU from the same numpy weights and batch (the loss and every gradient
+   leaf allclose, and the AdamW update of the CPU's gradients on both
+   devices, every updated parameter allclose); mamba2-2.7b-smoke refused by
+   name (B8 has no backward kernel); a restart on the card (3 steps, save,
+   restore into a fresh ``Trainer``, 3 more) bit-equal to 6 straight
+   steps; then full-width phi3-mini-3.8b (3,821,079,552 f32 parameters,
+   bf16 compute, remat) drawn on the card, 10 AdamW steps of 8 x 512
+   tokens in 2 microbatches through ``Trainer``: per-step loss, gradient
+   norm, wall time and tokens/s, one profiled step's device time, the
+   peak memory, the step's bound and its model-FLOP share; the losses
+   finite and falling. No kernel of B1–B9 launches in this phase (the
+   training path reaches none, in the reference or the port).
 
 Every ``torch.profiler`` session keeps host-idle margins inside both ends
 (``profiled``): in a few sessions in a hundred the profiler places the
@@ -303,16 +318,18 @@ class Profile:
 
 
 @contextlib.contextmanager
-def profiled(torch):
-    """A ``torch.profiler`` session over CPU and CUDA activity that opens
-    with ``PROLOGUE_LAUNCHES`` empty spin kernels (``torch.cuda._sleep``)
-    and keeps ``PROFILE_MARGIN_S`` of host-idle time inside each end; the
+def profiled(torch, cpu: bool = True):
+    """A ``torch.profiler`` session over CPU and CUDA activity (CUDA only
+    with ``cpu=False``: a training step's hundred thousand host-side op
+    records take tens of seconds to read) that opens with
+    ``PROLOGUE_LAUNCHES`` empty spin kernels (``torch.cuda._sleep``) and
+    keeps ``PROFILE_MARGIN_S`` of host-idle time inside each end; the
     body's work is synchronised before the closing margin. Yields a
     ``Profile``."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         for _ in range(PROLOGUE_LAUNCHES):
             torch.cuda._sleep(0)
         torch.cuda.synchronize()
@@ -2830,6 +2847,299 @@ def encdec_phase(torch, wcfg, slots, max_new, spec_k):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: training on one card (phi3-mini-3.8b at full width, AdamW)
+# ---------------------------------------------------------------------------
+
+# smoke configs whose one train step on the card is held to the CPU's
+TRAIN_SMOKE = ("phi3-mini-3.8b", "qwen3-moe-30b-a3b", "whisper-small",
+               "llava-next-34b")
+PHI3_MINI_PARAMS = 3_821_079_552
+
+
+def train_batch(cfg, seed, batch, seq):
+    """numpy tokens [batch, seq] and the family's embeddings (encdec:
+    frames [batch, enc_seq, D]; vlm-dense: [batch, seq, D]; else None)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (batch, seq)).astype(np.int64)
+    emb = None
+    if cfg.family == "encdec":
+        emb = rng.standard_normal((batch, cfg.enc_seq, cfg.d_model))
+    elif cfg.family == "vlm-dense":
+        emb = rng.standard_normal((batch, seq, cfg.d_model))
+    return toks, None if emb is None else emb.astype(np.float32)
+
+
+def close_leaves(got, want, what):
+    """Every leaf of ``got`` (card) allclose with ``want`` (CPU) at
+    ``rtol = 1e-4``, ``atol = 1e-5 · max|want|``; returns the largest
+    error over the leaf's max, or raises naming the leaf."""
+    worst = 0.0
+    for k, ref in want.items():
+        top = float(ref.abs().max())
+        err = (got[k] - ref).abs()
+        bad = err > 1e-5 * top + 1e-4 * ref.abs()
+        if bool(bad.any()):
+            raise AssertionError(
+                f"{what} {k}: {int(bad.sum())} of {ref.numel()} elements "
+                f"off the CPU's, max error {float(err.max())} (max |x| "
+                f"{top})")
+        worst = max(worst, float(err.max()) / (top or 1.0))
+    return worst
+
+
+def small_train_agreement(torch):
+    """One train step (float32, 2 microbatches, AdamW) on each
+    ``TRAIN_SMOKE`` config, on the card and on the CPU from the same numpy
+    parameters and batch: ``make_train_step``'s loss at ``rtol = 1e-5``;
+    every gradient leaf of ``loss_and_grads`` as ``close_leaves``; and
+    ``optimizer.update`` of the same parameters by the CPU's gradients,
+    every updated parameter as ``close_leaves``. (A whole step's updated
+    parameters are not compared element by element: Adam's first step
+    moves an element by ±lr·g/(|g| + eps), so a gradient element near eps
+    that the two devices round differently moves its parameter by up to
+    2·lr.) Returns {name: (loss relative error, worst gradient and
+    parameter errors)}."""
+    from repro_torch import bridge, configs
+    from repro_torch.models import registry
+    from repro_torch.optim import optimizer as opt
+    from repro_torch.train import trainer
+    from repro_torch.train.checkpointing import flatten_with_paths
+
+    def host(tree):
+        return {k: v.cpu() for k, v in flatten_with_paths(tree).items()}
+
+    out = {}
+    for name in TRAIN_SMOKE:
+        cfg = dataclasses.replace(configs.smoke_config(name),
+                                  dtype="float32")
+        arch = registry.build(cfg)
+        npp = bridge.numpy_params(arch.schema(), seed=SEED)
+        toks, emb = train_batch(cfg, SEED, 4, 33)
+        tc = trainer.TrainConfig(model=cfg, opt=opt.OptConfig(
+            lr=3e-4, warmup_steps=1, total_steps=10), microbatches=2)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            t = torch.from_numpy(toks).to(dev)
+            e = None if emb is None else torch.from_numpy(emb).to(dev)
+            params = bridge.params_from_numpy(npp, dev)
+            _, _, m = trainer.make_train_step(arch, tc)(
+                params, opt.init(tc.opt, params), t, e)
+            loss, grads = trainer.loss_and_grads(
+                trainer.make_loss_fn(arch), bridge.params_from_numpy(npp, dev),
+                arch.schema(), t, e, 2)
+            res[dev] = (float(loss), float(m["loss"]), grads)
+        cpu_grads = bridge.numpy_from_params(res["cpu"][2])
+        upd = {}
+        for dev in ("cpu", "cuda"):
+            params = bridge.params_from_numpy(npp, dev)
+            opt.update(tc.opt, opt.init(tc.opt, params), params,
+                       bridge.params_from_numpy(cpu_grads, dev))
+            upd[dev] = host(params)
+        (cl, cm, cg), (gl, gm, gg) = res["cpu"], res["cuda"]
+        for got, want in ((gl, cl), (gm, cm)):
+            if abs(got - want) > 1e-5 * abs(want):
+                raise AssertionError(f"{name}: card loss {got} vs CPU {want}")
+        out[name] = (abs(gl - cl) / abs(cl),
+                     close_leaves(host(gg), host(cg), f"{name} gradient"),
+                     close_leaves(upd["cuda"], upd["cpu"],
+                                  f"{name} updated parameter"))
+    return out
+
+
+def train_refusal(torch):
+    """mamba2-2.7b-smoke's train step on the card: B8 has no backward
+    kernel, so the step must raise by name. Returns the message."""
+    from repro_torch import configs
+    from repro_torch.optim.optimizer import OptConfig
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    t = Trainer(TrainConfig(model=configs.smoke_config("mamba2-2.7b"),
+                            opt=OptConfig(), global_batch=2, seq_len=16))
+    try:
+        t.run(1)
+    except NotImplementedError as e:
+        if "no backward for the SSD scan kernel on the card yet" in str(e):
+            return str(e)
+        raise
+    raise AssertionError("mamba2-2.7b trained on the card through B8")
+
+
+def train_restart_check(torch, name):
+    """``name``'s smoke config (bf16 compute) on the card: 6 straight steps
+    against 3 steps, a synchronous save, a fresh ``Trainer`` restored
+    from it and 3 more steps. Returns whether every parameter and
+    optimizer leaf is bit-equal, and the last loss."""
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.optim.optimizer import OptConfig
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    with tempfile.TemporaryDirectory() as root:
+        def tc(sub):
+            return TrainConfig(
+                model=configs.smoke_config(name),
+                opt=OptConfig(lr=1e-3, warmup_steps=1, total_steps=6),
+                global_batch=4, seq_len=64, microbatches=2,
+                ckpt_dir=str(Path(root) / sub), ckpt_async=False)
+
+        straight = Trainer(tc("a"))
+        hist = straight.run(6, log_every=1)
+        first = Trainer(tc("b"))
+        first.run(3, log_every=100)
+        first.save(sync=True)
+        again = Trainer(tc("b"))
+        if not (again.restore_if_any() and again.step == 3):
+            raise AssertionError(f"{name}: no checkpoint at step 3")
+        again.run(6, log_every=100)
+        same = (bit_equal(again.params, straight.params)
+                and bit_equal(list(again.opt_state),
+                              list(straight.opt_state)))
+    return same, hist[-1]["loss"]
+
+
+def train_step_bound(cfg, n_params, batch, seq):
+    """Least seconds for one remat train step, as the sum of its phases'
+    bounds: the layers' bf16 products (forward, the remat forward and the
+    backward: 8 FLOP a weight and token) at 989 TF/s; the f32 products
+    (attention over the whole S x S in forward, remat forward and backward,
+    and the unembedding in forward and backward) at 67 TF/s; AdamW's bytes
+    (p, g, m, v read, p, m, v written: 7 x 4 B a parameter) at 3.35 TB/s.
+    Returns (total, parts)."""
+    t = batch * (seq - 1)
+    s = seq - 1
+    vd = cfg.vocab * cfg.d_model
+    layers = n_params - 2 * vd - cfg.d_model  # embed, unembed, final norm
+    attn = 4 * 2 * (2 * batch * cfg.n_heads * s * s * cfg.hd) * cfg.n_layers
+    parts = {"bf16 products": 8 * layers * t / PEAK_OPS["bf16"],
+             "f32 products": (attn + 3 * 2 * t * vd) / PEAK_OPS["f32"],
+             "AdamW bytes": 7 * 4 * n_params / HBM_BYTES_PER_S}
+    return sum(parts.values()), parts
+
+
+def kernel_label(name: str) -> str:
+    """A CUDA kernel's name without its namespaces and launch details: the
+    functor of an elementwise kernel, the tile of a GEMM."""
+    for junk in ("void ", "at::native::", "(anonymous namespace)::",
+                 "cutlass::", "c10::"):
+        name = name.replace(junk, "")
+    return name[:110]
+
+
+def train_full_width(torch, card):
+    """phi3-mini-3.8b at full width (bf16 compute, f32 parameters, remat)
+    drawn on the card from a seeded generator, 10 AdamW steps through
+    ``Trainer`` (batch 8 x 512 in 2 microbatches, the synthetic Zipf
+    stream), then one profiled step. Prints each step's loss, gradient
+    norm, wall time and tokens/s, the profiled step's device time, the
+    peak memory and the model-FLOP share; checks finite, falling losses
+    and the parameter count."""
+    import gc
+    import math
+    import statistics
+
+    from repro_torch import configs
+    from repro_torch.models import registry, schema
+    from repro_torch.optim.optimizer import OptConfig
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = configs.get_config("phi3-mini-3.8b")
+    n = schema.param_count(registry.build(cfg).schema())
+    if n != PHI3_MINI_PARAMS:
+        raise AssertionError(f"phi3-mini-3.8b has {n} parameters")
+    batch, seq, steps = 8, 512, 10
+    tc = TrainConfig(model=cfg, opt=OptConfig(
+        lr=3e-4, warmup_steps=1, total_steps=steps), global_batch=batch,
+        seq_len=seq, microbatches=2, seed=SEED)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phi3-mini-3.8b training: {torch.cuda.memory_allocated() / 1e9:.2f}"
+          f" GB allocated before the trainer", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(tc)
+    torch.cuda.synchronize()
+    print(f"phi3-mini-3.8b: {n} parameters, f32 weights and AdamW state "
+          f"drawn on the card in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    hist = trainer.run(steps, log_every=1)
+    tokens = batch * (seq - 1)
+    for h in hist:
+        print(f"phi3-mini-3.8b train step {h['step']}: loss {h['loss']:.4f} "
+              f"grad_norm {h['grad_norm']:.4f} {h['sec'] * 1e3:.1f} ms "
+              f"({tokens / h['sec']:.0f} tokens/s) [{card}]", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    with profiled(torch, cpu=False) as prof:
+        trainer.run(steps + 1, log_every=1)
+    t1 = time.perf_counter()
+    on_dev = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")]
+    dev_ms = sum(dev_us(e) for e in on_dev) / 1e3
+    kernels = sum(e.count for e in on_dev)
+    top = sorted(on_dev, key=dev_us, reverse=True)[:10]
+    print("phi3-mini-3.8b profiled train step, device ms by kernel (calls): "
+          + "; ".join(f"{kernel_label(e.key)} {dev_us(e) / 1e3:.1f} "
+                      f"({e.count})" for e in top), flush=True)
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for h in hist):
+        raise AssertionError(f"non-finite loss or gradient norm: {hist}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    step_s = statistics.median(h["sec"] for h in hist[1:])
+    bound_s, parts = train_step_bound(cfg, n, batch, seq)
+    mfu = 6 * n * tokens / (step_s * PEAK_OPS["bf16"])
+    print(f"phi3-mini-3.8b train step (median of steps 2-{steps}): "
+          f"{step_s * 1e3:.1f} ms host wall, {tokens / step_s:.0f} tokens/s; "
+          f"one profiled step {dev_ms:.1f} ms of device time in {kernels} "
+          f"kernels (busy {dev_ms / 1e3 / step_s:.2f}); bound "
+          f"{bound_s * 1e3:.1f} ms ("
+          + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in parts.items())
+          + f"); model-FLOP share 6NT/(step x 989 TF/s) {mfu:.3f}; peak "
+          f"memory {peak / 1e9:.2f} GB (max_memory_allocated) [{card}]; "
+          f"the profiled step took {t1 - t0:.1f} s and its reading "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def train_phase(torch, card):
+    """Phase 10: the smoke-width card-vs-CPU steps, the B8 refusal, the
+    restart on the card, then full-width phi3-mini-3.8b; every launch
+    counter stays at 0 throughout (the training path reaches none of
+    B1-B9)."""
+    from repro_torch.kernels.build import all_kernels
+
+    for k in all_kernels():
+        k.launches = 0
+    t0 = time.perf_counter()
+    for name, (loss_err, g_err, p_err) in small_train_agreement(torch).items():
+        print(f"small input {name}-smoke (float32, 2 microbatches): card vs "
+              f"CPU loss rel err {loss_err:.2e}, worst gradient leaf "
+              f"{g_err:.2e}, worst updated parameter leaf {p_err:.2e} "
+              f"(of the leaf's max)", flush=True)
+    print(f"({time.perf_counter() - t0:.1f} s) mamba2-2.7b-smoke train step "
+          f"on the card refused: {train_refusal(torch)}", flush=True)
+    for name in ("phi3-mini-3.8b", "qwen3-moe-30b-a3b"):
+        same, loss = train_restart_check(torch, name)
+        if not same:
+            raise AssertionError(f"{name}: restarted run differs from the "
+                                 f"straight one")
+        print(f"({time.perf_counter() - t0:.1f} s) {name}-smoke (bf16) on "
+              f"the card: 3 steps + save + restore + 3 bit-equal to 6 "
+              f"straight steps (loss {loss:.4f})", flush=True)
+    train_full_width(torch, card)
+    moved = {k.name: k.launches for k in all_kernels() if k.launches}
+    if moved:
+        raise AssertionError(f"phase 10 launched kernels: {moved}")
+
+
 def pool_row_bytes(torch, cfg, blk, int8):
     """Bytes of one pool row of one layer: K and V blocks, and the two
     per-block scales on int8 pools."""
@@ -3406,6 +3716,10 @@ def main() -> None:
     phase(9, "whisper-small (encdec) with embeds requests")
     for name, n in encdec_phase(torch, wcfg, slots, max_new, spec_k).items():
         main_counts[name] += n
+
+    # -- phase 10: training phi3-mini-3.8b at full width (AdamW) ----------
+    phase(10, "phi3-mini-3.8b training")
+    train_phase(torch, card)
 
     for e in entries:
         e["launches"] = main_counts[e["name"]]

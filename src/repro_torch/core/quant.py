@@ -17,8 +17,9 @@ reference and divides.
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +29,14 @@ INT8_MAX = 127
 MULT_BITS = 15  # fixed-point multiplier width (16×16 signed multiplier)
 _PRE_SHIFT = 15
 _SMALL_ACC = 1 << 16
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantParams:
+    """Static quantization metadata for one tensor."""
+
+    bits: int = 8
+    per_channel_axis: Optional[int] = None  # None → per-tensor
 
 
 def recip32(c: float) -> float:
@@ -70,6 +79,10 @@ def quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Symmetric quantize to int8 (round-half-away-from-zero like the RTL)."""
     q = _round_half_away(x / scale)
     return torch.clamp(q, INT8_MIN, INT8_MAX).to(torch.int8)
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
 
 
 def round_shift(v: torch.Tensor, s) -> torch.Tensor:
@@ -145,3 +158,22 @@ def quantize_weights(w: torch.Tensor, per_channel: bool = True):
     scale = compute_scale(w, axis=axis)
     wq = quantize(w, scale)
     return wq, (scale.squeeze(0) if per_channel else scale)
+
+
+def fake_quant(x: torch.Tensor, axis=None) -> torch.Tensor:
+    """Quantize→dequantize with a straight-through gradient (QAT): the
+    forward value is the dequantized tensor, the gradient that of the
+    identity."""
+    xd = x.detach()
+    scale = compute_scale(xd, axis=axis)
+    return x + (dequantize(quantize(xd, scale), scale) - xd)
+
+
+def int8_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """int8 × int8 → int32 exact accumulation (the PE-array contract).
+
+    One route on every device: the products are summed in float64, which
+    is exact (every partial sum is an integer of magnitude at most
+    K·127² < 2⁵³); CUDA has no integer matmul outside cuBLASLt's
+    shape-restricted one."""
+    return (x_q.to(torch.float64) @ w_q.to(torch.float64)).to(torch.int32)

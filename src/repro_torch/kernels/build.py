@@ -206,3 +206,14 @@ def check_cuda(name: str, t: torch.Tensor, dtype, shape=None) -> None:
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def refuse_backward(what: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would need a backward of a kernel that has none:
+    a launch's outputs carry no ``grad_fn``, so a train step through it
+    would silently give zero gradients to everything before it."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"no backward for {what} on the card yet; train this family "
+            f"on the CPU (device='cpu'), where the plain version is "
+            f"differentiable")

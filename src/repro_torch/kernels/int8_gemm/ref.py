@@ -12,19 +12,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import ita, quant
-
-
-def int8_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
-    """int8 × int8 → int32, exact.
-
-    On the CPU an int32 matmul. CUDA has no integer matmul outside
-    cuBLASLt's shape-restricted one, so there the products are summed in
-    float64, which is exact: every partial sum is an integer of magnitude
-    at most K·127² < 2⁵³.
-    """
-    if x_q.device.type == "cpu":
-        return x_q.to(torch.int32) @ w_q.to(torch.int32)
-    return (x_q.to(torch.float64) @ w_q.to(torch.float64)).to(torch.int32)
+from repro_torch.core.quant import int8_matmul_ref
 
 
 def int8_gemm_ref(

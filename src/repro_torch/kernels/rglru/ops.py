@@ -90,5 +90,6 @@ def rglru(log_a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     if u.device.type == "cpu":
         return rglru_ref(log_a, u)
     if u.device.type == "cuda":
+        build.refuse_backward("the RG-LRU scan kernel", log_a, u)
         return rglru_cuda(log_a.float().contiguous(), u.contiguous())
     raise ValueError(f"rglru: no version for device {u.device}")

@@ -116,6 +116,7 @@ def ssd_scan(dta: torch.Tensor, x: torch.Tensor, b_mat: torch.Tensor,
                                    return_state=return_state)
         y, state = out if return_state else (out, None)
     elif x.device.type == "cuda":
+        build.refuse_backward("the SSD scan kernel", dta, x, b_mat, c_mat)
         out = ssd_scan_cuda(*(t.contiguous() for t in args), chunk=chunk,
                             return_state=return_state)
         y, state = out if return_state else (out, None)

@@ -22,7 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.quant import recip32
+from repro_torch.core.quant import int8_matmul_ref, recip32
 from repro_torch.kernels.ita_attention.ops import ita_attention
 
 NEG_INF = -1e30
@@ -125,17 +125,6 @@ def _q_to_int8_scale(d: int) -> float:
         recip32(Q_SCALE))))
 
 
-def _int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Exact integer ``a @ b`` (int8-valued operands of any dtype) as int32.
-
-    The products run in float64 on every device: CUDA has no integer
-    ``matmul``, and an f32 product is exact only while each partial sum
-    stays below 2^24 (the AV sum passes it at S ≈ 1040 on a row of equal
-    logits) and follows the TF32 switch besides. Every partial sum here is
-    an integer below 2^53, so f64 is exact in any summation order."""
-    return (a.double() @ b.double()).to(torch.int32)
-
-
 def decode_attention_int8(
     q: torch.Tensor,         # [B, Hq, 1, D] float (post-RoPE)
     k_cache8: torch.Tensor,  # [B, Hkv, S_cache, D] int8-valued (KV_SCALE)
@@ -165,7 +154,10 @@ def decode_attention_int8(
     group = hq // hkv
     q8 = torch.clamp(torch.round(q.float() * _q_to_int8_scale(d)), -127, 127)
     q8g = q8.reshape(b, hkv, group, d)             # Sq = 1 folded in
-    s32 = _int_dot(q8g, k_cache8.transpose(-1, -2))   # [B, Hkv, group, S]
+    # exact integer products (float64 on every device: an f32 product
+    # is exact only while each partial sum stays below 2^24, which the AV
+    # sum passes at S ≈ 1040 on a row of equal logits)
+    s32 = int8_matmul_ref(q8g, k_cache8.transpose(-1, -2))  # [B, Hkv, g, S]
 
     s_logit = LOGIT_AMAX / 127.0
     mlt, sh = quantize_to_fixed_point_py(Q_SCALE * KV_SCALE / s_logit)
@@ -190,7 +182,7 @@ def decode_attention_int8(
     be = -((-m) >> ita.FB)
     e = ita.exp2_fixed(torch.clamp(t - (be << ita.FB), min=neg))
     p8 = torch.clamp(e >> 1, max=127)
-    av = _int_dot(p8, v_cache8)                    # [B, Hkv, group, D]
+    av = int8_matmul_ref(p8, v_cache8)             # [B, Hkv, group, D]
     den = torch.clamp(p8.sum(dim=-1, keepdim=True, dtype=torch.int32), min=1)
     y = av.float() / den.float() * KV_SCALE
     return y.reshape(b, hq, 1, d).to(q.dtype)

@@ -102,9 +102,14 @@ def encode(params, frame_embeds, cfg: ModelConfig):
     "B" layers, then ``enc_norm``)."""
     x = frame_embeds.to(cfg.compute_dtype)
     positions = torch.arange(x.shape[1], device=x.device)
+
+    def apply_layer(xc, p):
+        return dense._prefill_layer(xc, p, "B", cfg, positions)[0]
+
+    run = nn.remat(apply_layer, cfg.remat)
+    stack = nn.unstack(params["enc_stack"])
     for i in range(cfg.n_enc_layers):
-        x, _, _ = dense._prefill_layer(x, _at(params["enc_stack"], i), "B",
-                                       cfg, positions)
+        x = run(x, _at(stack, i))
     return nn.rms_norm(x, params["enc_norm"])
 
 
@@ -163,9 +168,14 @@ def forward(params, tokens, cfg: ModelConfig, *, embeds=None):
     enc = encode(params, embeds, cfg)
     x = nn.embed(tokens, params["embed"], cfg.compute_dtype)
     positions = torch.arange(x.shape[1], device=x.device)
+
+    def apply_layer(xc, p):
+        return _dec_prefill_layer(xc, p, enc, cfg, positions)[0]
+
+    run = nn.remat(apply_layer, cfg.remat)
+    stack = nn.unstack(params["dec_stack"])
     for i in range(cfg.n_layers):
-        x, *_ = _dec_prefill_layer(x, _at(params["dec_stack"], i), enc, cfg,
-                                   positions)
+        x = run(x, _at(stack, i))
     return dense._logits(params, x, cfg)
 
 

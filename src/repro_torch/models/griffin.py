@@ -165,16 +165,31 @@ def _local_attention(x, p, cfg: ModelConfig, positions):
 
 
 def forward(params, tokens, cfg: ModelConfig, *, embeds=None):
+    """Teacher-forcing logits [B, S, V]; each layer group's body is
+    recomputed in the backward pass under ``cfg.remat``."""
     x = embeds if embeds is not None else nn.embed(
         tokens, params["embed"], cfg.compute_dtype)
     positions = torch.arange(x.shape[1], device=x.device)
-    for kind, where, g in dense._layers(cfg):
-        p = dense._entry(params, where, g)
+    pattern, n_groups, tail = cfg.layer_layout()
+
+    def apply(xc, p, kind):
         if kind == "R":
-            x = x + _rec_block(x, p, cfg)
+            xc = xc + _rec_block(xc, p, cfg)
         else:
-            x, _, _ = _local_attention(x, p, cfg, positions)
-        x = _mlp_res(x, p, cfg)
+            xc, _, _ = _local_attention(xc, p, cfg, positions)
+        return _mlp_res(xc, p, cfg)
+
+    def group(xc, layer_params):
+        for kind, p in zip(pattern, layer_params):
+            xc = apply(xc, p, kind)
+        return xc
+
+    run = nn.remat(group, cfg.remat)
+    stacks = [nn.unstack(s) for s in params["stacks"]]
+    for g in range(n_groups):
+        x = run(x, [{k: v[g] for k, v in s.items()} for s in stacks])
+    for kind, sub in zip(tail, params.get("tail", [])):
+        x = apply(x, {k: v[0] for k, v in sub.items()}, kind)
     x = nn.rms_norm(x, params["final_norm"])
     return nn.unembed(x, params["unembed"])
 

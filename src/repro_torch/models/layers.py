@@ -6,8 +6,11 @@ JAX code has them, so bf16 compute rounds at the same places.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -66,3 +69,24 @@ def embed(tokens: torch.Tensor, table: torch.Tensor,
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Logits in f32 (stable softmax/loss)."""
     return x.float() @ table.float().T
+
+
+def unstack(group: dict) -> dict:
+    """A stacked layer group's leaves taken apart along the stack axis
+    once (``unbind``: views), so that selecting layer ``g`` of each is a
+    tuple index. Under autograd, indexing a stacked tensor per layer
+    would make each layer's backward write a zero-filled gradient of the
+    whole stack; ``unbind``'s backward stacks the layers' gradients once.
+    Leaves already taken apart (tuples or lists) pass through."""
+    return {k: v.unbind(0) if isinstance(v, torch.Tensor) else v
+            for k, v in group.items()}
+
+
+def remat(fn, enabled: bool):
+    """``fn`` recomputed in the backward pass instead of saving its
+    internals (``torch.utils.checkpoint``, non-reentrant), as the
+    reference wraps a layer group's body in ``jax.checkpoint``; ``fn``
+    itself when ``enabled`` is off or grad mode is off (serving)."""
+    if not (enabled and torch.is_grad_enabled()):
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False)

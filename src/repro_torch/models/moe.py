@@ -138,22 +138,72 @@ def moe_mlp(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
                      torch.arange(sk, device=dev).repeat(b))
     slot_id = slot_id[:trash].view(b, e, cap)
     empty = slot_id >= sk
-    token_of_slot = torch.clamp(slot_id, max=sk - 1) // k       # [B, E, C]
+    slot_id_c = torch.clamp(slot_id, max=sk - 1)
+    token_of_slot = slot_id_c // k                               # [B, E, C]
 
     # tokens -> expert slots (gather), held expert-major [E, B·C, D] so
     # each expert's products are one matrix product of a batched product
-    buf = x[bidx, token_of_slot.reshape(b, e * cap)].view(b, e, cap, d)
-    buf = buf.masked_fill(empty[..., None], 0)
+    buf = _PermuteIn.apply(x, token_of_slot, empty, flat_e, pos_c, keep, k)
     buf = buf.transpose(0, 1).reshape(e, b * cap, d)
     h = act(torch.bmm(buf, p["we_gate"].to(x.dtype)),
             torch.bmm(buf, p["we_up"].to(x.dtype)))
     out_buf = torch.bmm(h, p["we_down"].to(x.dtype)).view(e, b, cap, d)
 
     # expert slots -> token slots (gather)
-    y = out_buf[flat_e, bidx, pos_c]                             # [B, S·k, D]
-    y = y.masked_fill(~keep[..., None], 0)
+    y = _PermuteOut.apply(out_buf, flat_e, pos_c, keep, slot_id_c, empty)
     y = y * gate[..., None].to(y.dtype)
     return y.view(b, s, k, d).sum(2)
+
+
+# -- gather-only token <-> slot permutations -------------------------------
+#
+# Both directions gather, and so do both backward passes (the reference's
+# ``custom_vjp``s, ``repro.models.moe._permute_in`` / ``_permute_out``):
+# autograd's own backward of an index would scatter-add, which on the card
+# accumulates with atomics, in an order that varies from run to run.
+
+
+class _PermuteIn(torch.autograd.Function):
+    """[B, S, D] tokens → [B, E, C, D] expert slots (zeros where empty)."""
+
+    @staticmethod
+    def forward(ctx, x, token_of_slot, empty, flat_e, pos_c, keep, k):
+        b, d = x.shape[0], x.shape[-1]
+        _, e, cap = token_of_slot.shape
+        bidx = torch.arange(b, device=x.device)[:, None]
+        buf = x[bidx, token_of_slot.reshape(b, e * cap)].view(b, e, cap, d)
+        ctx.save_for_backward(flat_e, pos_c, keep)
+        ctx.k = k
+        return buf.masked_fill(empty[..., None], 0)
+
+    @staticmethod
+    def backward(ctx, dbuf):
+        flat_e, pos_c, keep = ctx.saved_tensors
+        b, sk = flat_e.shape
+        bidx = torch.arange(b, device=dbuf.device)[:, None]
+        dx = dbuf[bidx, flat_e, pos_c].masked_fill(~keep[..., None], 0)
+        dx = dx.view(b, sk // ctx.k, ctx.k, dbuf.shape[-1]).sum(2)
+        return dx, None, None, None, None, None, None
+
+
+class _PermuteOut(torch.autograd.Function):
+    """[E, B, C, D] expert slots → [B, S·k, D] token slots (zeros where a
+    slot was dropped)."""
+
+    @staticmethod
+    def forward(ctx, out_buf, flat_e, pos_c, keep, slot_id_c, empty):
+        bidx = torch.arange(out_buf.shape[1], device=out_buf.device)[:, None]
+        ctx.save_for_backward(slot_id_c, empty)
+        return out_buf[flat_e, bidx, pos_c].masked_fill(~keep[..., None], 0)
+
+    @staticmethod
+    def backward(ctx, dy):
+        slot_id_c, empty = ctx.saved_tensors
+        b, e, cap = slot_id_c.shape
+        bidx = torch.arange(b, device=dy.device)[:, None]
+        dbuf = dy[bidx, slot_id_c.reshape(b, e * cap)].view(
+            b, e, cap, dy.shape[-1]).masked_fill(empty[..., None], 0)
+        return dbuf.transpose(0, 1), None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------

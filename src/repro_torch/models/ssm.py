@@ -143,12 +143,18 @@ def _ssd_block(x, p, cfg: ModelConfig, return_state: bool = False):
 
 
 def forward(params, tokens, cfg: ModelConfig, *, embeds=None):
+    """Teacher-forcing logits [B, S, V]; each layer's body is recomputed in
+    the backward pass under ``cfg.remat``."""
     x = embeds if embeds is not None else nn.embed(
         tokens, params["embed"], cfg.compute_dtype)
-    stack = params["stacks"][0]
+
+    def apply_layer(xc, p):
+        return xc + _ssd_block(nn.rms_norm(xc, p["ln"]), p, cfg)
+
+    run = nn.remat(apply_layer, cfg.remat)
+    stack = nn.unstack(params["stacks"][0])
     for i in range(cfg.n_layers):
-        p = _layer(stack, i)
-        x = x + _ssd_block(nn.rms_norm(x, p["ln"]), p, cfg)
+        x = run(x, _layer(stack, i))
     x = nn.rms_norm(x, params["final_norm"])
     return nn.unembed(x, params["unembed"])
 

@@ -283,11 +283,24 @@ def forward(params, tokens, cfg: ModelConfig, *, embeds=None):
 def _forward_impl(params, tokens, cfg: ModelConfig, *, layer_fn,
                   embeds=None):
     """Shared forward scaffold over ``layer_fn`` (a prefill layer; its k/v
-    are dropped)."""
+    are dropped): the stacked layer groups, each group's body recomputed
+    in the backward pass under ``cfg.remat``, then the tail layers."""
     x = _embed_in(params, tokens, cfg, embeds)
     positions = torch.arange(x.shape[1], device=x.device)
-    for kind, where, g in _layers(cfg):
-        x, _, _ = layer_fn(x, _entry(params, where, g), kind, cfg, positions)
+    pattern, n_groups, tail = cfg.layer_layout()
+
+    def group(xc, layer_params):
+        for kind, p in zip(pattern, layer_params):
+            xc, _, _ = layer_fn(xc, p, kind, cfg, positions)
+        return xc
+
+    run = nn.remat(group, cfg.remat)
+    stacks = [nn.unstack(s) for s in params["stacks"]]
+    for g in range(n_groups):
+        x = run(x, [{k: v[g] for k, v in s.items()} for s in stacks])
+    for kind, sub in zip(tail, params.get("tail", [])):
+        x, _, _ = layer_fn(x, {k: v[0] for k, v in sub.items()}, kind, cfg,
+                           positions)
     return _logits(params, x, cfg)
 
 

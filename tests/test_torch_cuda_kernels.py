@@ -1343,3 +1343,107 @@ def test_int_softmax_op_dispatches_by_device(cuda_device):
         smax_ops.int_softmax_cuda(x, logit_scale=0.05)
     with pytest.raises(ValueError, match="contiguous"):
         smax_ops.int_softmax_cuda(x.reshape(6, 50).t(), logit_scale=0.05)
+
+
+# -- training on the card ---------------------------------------------------
+
+
+def test_scan_kernels_refuse_autograd_by_name(cuda_device):
+    """B8 and B9 have no backward kernel: a CUDA input that requires grad
+    under grad mode raises instead of giving outputs without ``grad_fn``
+    (zero gradients for everything before the scan); without grad they
+    launch as before."""
+    from repro_torch.models import registry
+    from repro_torch.optim import optimizer as opt
+    from repro_torch.train import trainer
+
+    dta, x, bm, cm = _ssd_case(cuda_device, 40, h=4, p=8, n=16)
+    with pytest.raises(NotImplementedError,
+                       match="no backward for the SSD scan kernel on the "
+                             "card yet"):
+        ssd_ops.ssd_scan(dta, x.requires_grad_(), bm, cm)
+    with torch.no_grad():
+        ssd_ops.ssd_scan(dta, x, bm, cm)
+    log_a, u = _rglru_case(cuda_device, 1, 40, d=32, u_dtype=torch.float32)
+    with pytest.raises(NotImplementedError,
+                       match="no backward for the RG-LRU scan kernel"):
+        rglru_ops.rglru(log_a, u.requires_grad_())
+    for name in ("mamba2-2.7b", "recurrentgemma-9b"):
+        cfg = dataclasses.replace(configs.smoke_config(name),
+                                  dtype="float32")
+        arch = registry.build(cfg)
+        params = bridge.params_from_numpy(
+            bridge.numpy_params(arch.schema(), seed=0), cuda_device)
+        toks = torch.randint(0, cfg.vocab, (2, 9), device=cuda_device)
+        tc = trainer.TrainConfig(model=cfg, opt=opt.OptConfig())
+        step = trainer.make_train_step(arch, tc)
+        with pytest.raises(NotImplementedError, match="no backward"):
+            step(params, opt.init(tc.opt, params), toks)
+
+
+def _train_inputs(cfg, seed=0, batch=4, seq=33):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (batch, seq)).astype(np.int64)
+    emb = None
+    if cfg.family == "encdec":
+        emb = rng.standard_normal((batch, cfg.enc_seq, cfg.d_model))
+    elif cfg.family == "vlm-dense":
+        emb = rng.standard_normal((batch, seq, cfg.d_model))
+    return toks, None if emb is None else emb.astype(np.float32)
+
+
+@pytest.mark.parametrize("name", ["phi3-mini-3.8b", "qwen3-moe-30b-a3b",
+                                  "whisper-small", "llava-next-34b"])
+def test_train_step_on_card_equals_cpu(cuda_device, name):
+    """One train step (float32, two microbatches) on the card and on the
+    CPU from the same numpy parameters and batch: ``make_train_step``'s
+    loss at ``rtol = 1e-5``, every gradient leaf at ``rtol = 1e-4`` with
+    ``atol = 1e-5 · max|g|``, and the AdamW update of the CPU's gradients
+    on both devices, every parameter at ``rtol = 1e-4`` with
+    ``atol = 1e-5 · max|p|`` (a whole step's parameters are not compared
+    element-wise: Adam's first step moves an element whose gradient is
+    near eps by up to 2·lr, whichever way each device rounds it); no
+    kernel of the port launched."""
+    from repro_torch.models import registry
+    from repro_torch.optim import optimizer as opt
+    from repro_torch.train import trainer
+    from repro_torch.train.checkpointing import flatten_with_paths
+
+    def host(tree):
+        return {k: v.cpu() for k, v in flatten_with_paths(tree).items()}
+
+    cfg = dataclasses.replace(configs.smoke_config(name), dtype="float32")
+    arch = registry.build(cfg)
+    npp = bridge.numpy_params(arch.schema(), seed=0)
+    toks, emb = _train_inputs(cfg)
+    tc = trainer.TrainConfig(model=cfg, opt=opt.OptConfig(
+        lr=3e-4, warmup_steps=1, total_steps=10), microbatches=2)
+    out = {}
+    launches = [k.launches for k in build.all_kernels()]
+    for dev in ("cpu", "cuda"):
+        t = torch.from_numpy(toks).to(dev)
+        e = None if emb is None else torch.from_numpy(emb).to(dev)
+        params = bridge.params_from_numpy(npp, dev)
+        _, _, m = trainer.make_train_step(arch, tc)(
+            params, opt.init(tc.opt, params), t, e)
+        loss, grads = trainer.loss_and_grads(
+            trainer.make_loss_fn(arch), bridge.params_from_numpy(npp, dev),
+            arch.schema(), t, e, 2)
+        out[dev] = (float(loss), float(m["loss"]), grads)
+    cpu_grads = bridge.numpy_from_params(out["cpu"][2])
+    upd = {}
+    for dev in ("cpu", "cuda"):
+        params = bridge.params_from_numpy(npp, dev)
+        opt.update(tc.opt, opt.init(tc.opt, params), params,
+                   bridge.params_from_numpy(cpu_grads, dev))
+        upd[dev] = host(params)
+    assert [k.launches for k in build.all_kernels()] == launches
+    (cl, cm, cg), (gl, gm, gg) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(gl, cl, rtol=1e-5)
+    np.testing.assert_allclose(gm, cm, rtol=1e-5)
+    for got, want in ((host(gg), host(cg)), (upd["cuda"], upd["cpu"])):
+        assert got.keys() == want.keys()
+        for k in want:
+            np.testing.assert_allclose(
+                got[k].numpy(), want[k].numpy(), rtol=1e-4,
+                atol=1e-5 * float(want[k].abs().max()), err_msg=k)

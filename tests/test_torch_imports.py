@@ -47,6 +47,9 @@ def test_port_imports_neither_jax_nor_the_reference_package():
             "repro_torch.kernels.ita_attention.ops",
             "repro_torch.kernels.ita_attention.ref",
             "repro_torch.models.encdec", "repro_torch.serve.engine",
+            "repro_torch.train.trainer", "repro_torch.optim.optimizer",
+            "repro_torch.data.pipeline", "repro_torch.train.checkpointing",
+            "repro_torch.launch.train",
             } <= set(mods)
     script = (
         "import importlib, sys\n"
@@ -133,3 +136,20 @@ def test_cache_constructors_default_to_cuda(name, make):
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make(arch)
+
+
+def test_trainer_runs_on_cuda_unless_cpu_is_asked(monkeypatch):
+    """The training entry points follow the same device rule."""
+    from repro_torch.optim.optimizer import OptConfig
+    from repro_torch.train import checkpointing
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tc = TrainConfig(model=tconfigs.smoke_config("phi3-mini-3.8b"),
+                     opt=OptConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(tc)
+    t = Trainer(tc, device="cpu")
+    assert all(p.device.type == "cpu" for p in leaves(t.params))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        checkpointing.restore("unused", 0, {"x": torch.zeros(1)})

@@ -4,6 +4,7 @@ Every function here is integer (or exactly-rounded float) arithmetic, so the
 contract is bit-exactness on the same numpy inputs.
 """
 
+import dataclasses
 import math
 
 import jax.numpy as jnp
@@ -124,3 +125,35 @@ def test_int_relu_and_gelu_scale_guard():
         tita.int_gelu(_t(q), 0.001)
     with pytest.raises(ValueError):
         tita.gelu_constants(0.001, 0.1)
+
+
+@pytest.mark.parametrize("k", [5, 4096])
+def test_int8_matmul_ref_bit_exact(k):
+    """int8 × int8 → int32 through the port's one exact route (float64
+    products on every device) equals the reference's int32 dot."""
+    rng = np.random.default_rng(k)
+    a = rng.integers(-127, 128, (7, k)).astype(np.int8)
+    b = rng.integers(-127, 128, (k, 9)).astype(np.int8)
+    got = tquant.int8_matmul_ref(_t(a), _t(b))
+    assert got.dtype == torch.int32
+    _eq(jquant.int8_matmul_ref(jnp.asarray(a), jnp.asarray(b)), got)
+    extreme = np.full((1, k), -127, np.int8)  # the largest |sum|: k·127²
+    _eq(jquant.int8_matmul_ref(jnp.asarray(extreme), jnp.asarray(b * 0 - 127)),
+        tquant.int8_matmul_ref(_t(extreme), _t(b * 0 - 127)))
+
+
+def test_dequantize_and_quant_params_match_reference():
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((6, 5)).astype(np.float32)
+    for axis in (None, 0):
+        jscale = jquant.compute_scale(jnp.asarray(x), axis=axis)
+        tscale = tquant.compute_scale(_t(x), axis=axis)
+        _eq(jscale, tscale)
+        q = tquant.quantize(_t(x), tscale)
+        _eq(jquant.quantize(jnp.asarray(x), jscale), q)
+        _eq(jquant.dequantize(jnp.asarray(q.numpy()), jscale),
+            tquant.dequantize(q, tscale))
+    assert tquant.QuantParams() == tquant.QuantParams(8, None)
+    assert ([(f.name, f.default) for f in dataclasses.fields(tquant.QuantParams)]
+            == [(f.name, f.default)
+                for f in dataclasses.fields(jquant.QuantParams)])
